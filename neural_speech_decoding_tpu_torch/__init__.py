@@ -7,14 +7,17 @@ imports torch, numpy and the standard library only.
   config.py      frozen dataclass configs (filter / decoder / pipeline)
   io/            .npz and .pth parameter loading, JAX-pytree conversion
   ops/           Hilbert operator, MAI (Kuramoto) filter, LSTM gate math,
-                 kernels/ hand-written CUDA kernels with their plain twins
-  models/        LSTM decoder (eval path)
+                 8x8 SPD algebra (spd.py), kernels/ hand-written CUDA
+                 kernels with their plain twins
+  models/        LSTM decoder and log-covariance family (eval paths), the
+                 registry of families
   runtime/       boards, connector, streaming producer, InferenceEngine,
-                 run_trials
+                 EnsembleEngine, run_trials and the tester CLI
   utils/         device selection, latency metrics
 
-Entry points (`InferenceEngine`, `mai_filter_batch`, `run_trials`) run on
-CUDA unless the caller passes `device="cpu"`; without CUDA they raise.
+Entry points (`InferenceEngine`, `EnsembleEngine`, `mai_filter_batch`,
+`run_trials`) run on CUDA unless the caller passes `device="cpu"`;
+without CUDA they raise.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,7 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"kuramoto_pair_sums": 0}
+LAUNCHES: Dict[str, int] = {"kuramoto_pair_sums": 0, "bandcov_grams": 0, "logcov_feats": 0}
 _lock = threading.Lock()
 
 

@@ -1,16 +1,18 @@
 """Inference engine: batched decoding on one device.
 
-Counterpart of neural_speech_decoding_tpu/runtime/engine.py:151-286 for
-the LSTM families. One call of `predict_batch` runs the whole pipeline
-on the engine's device:
+Counterpart of neural_speech_decoding_tpu/runtime/engine.py:36-286. One
+call of `predict_batch` runs the whole pipeline on the engine's device:
 
   raw windows [B, T, C] -> ops/kuramoto.mai_filter_batch (fast mode: the
-  pair-sums CUDA kernel on the card) -> models/lstm.decoder_logits ->
-  softmax
+  pair-sums CUDA kernel on the card) -> the family's decoder (the LSTM, or
+  the log-covariance features and head, whose guard flags feed the stats)
+  -> softmax
 
-Batch sizes are padded to powers of two (zero windows, sliced away), the
-serving contract of the JAX engine. The engine runs on CUDA unless the
-caller passes `device="cpu"`; without CUDA it raises.
+`_ServingBase` holds what InferenceEngine and EnsembleEngine share: the
+thread-safe {"windows", "guard_flagged"} stats, power-of-two batch buckets
+(zero windows, sliced away, and never counted), predict / predict_batch /
+logits_batch and warmup. The engines run on CUDA unless the caller passes
+`device="cpu"`; without CUDA they raise.
 """
 
 from __future__ import annotations
@@ -22,26 +24,14 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from neural_speech_decoding_tpu_torch.config import (
-    FIVE_CLASS_NAMES,
-    THREE_CLASS_NAMES,
-    DecoderConfig,
-    FilterConfig,
-    PipelineConfig,
-)
+from neural_speech_decoding_tpu_torch.config import FilterConfig, PipelineConfig
 from neural_speech_decoding_tpu_torch.io.checkpoint import load_decoder_params
 from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
 from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
 from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
+from neural_speech_decoding_tpu_torch.models.registry import get_model
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
 from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, resolve_device
-
-# family -> (classes, class names): the LSTM entries of the JAX registry
-# (neural_speech_decoding_tpu/models/registry.py:167-168)
-_FAMILIES = {
-    "lstm": (3, THREE_CLASS_NAMES),
-    "lstm5": (5, FIVE_CLASS_NAMES),
-}
 
 
 def _bucket(n: int) -> int:
@@ -57,7 +47,97 @@ def _disable_tf32() -> None:
         raise RuntimeError("could not disable TF32")
 
 
-class InferenceEngine:
+def _serving_config(spec, model: str) -> PipelineConfig:
+    """The serving default: the fast filter (float32, the kernel route);
+    LSTM families take their decoder config from the spec."""
+    return PipelineConfig(
+        class_names=spec.class_names,
+        decoder=spec.config if model.startswith("lstm") else PipelineConfig().decoder,
+        filter=FilterConfig(precision="fast"),
+    )
+
+
+class _ServingBase:
+    """Shared serving surface. Subclasses set `device`, `config` and
+    `class_names`, call `_init_serving()`, and implement `_forward`
+    (windows tensor -> (logits, flags or None)); an ensemble also
+    overrides `_probs`."""
+
+    def _init_serving(self) -> None:
+        self._stats = {"windows": 0, "guard_flagged": 0}
+        self._stats_lock = threading.Lock()
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """{"windows", "guard_flagged"}: windows decoded, and those of them
+        whose covariance spectrum the logcov guard clamped (always 0 for
+        families without a guard). Padding windows are never counted."""
+        with self._stats_lock:
+            return dict(self._stats)
+
+    def _forward(self, windows_btc: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        raise NotImplementedError
+
+    def _probs(self, logits: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(logits, dim=-1)
+
+    @torch.no_grad()
+    def _decode(self, windows_btc, softmax: bool) -> np.ndarray:
+        x = np.asarray(windows_btc, dtype=np.float32)
+        if x.ndim != 3:
+            raise ValueError(f"expected windows [B, T, C], got shape {x.shape}")
+        b = x.shape[0]
+        if b == 0:
+            return np.zeros((0, len(self.class_names)), np.float32)
+        bb = _bucket(b)
+        if bb != b:  # zero windows, sliced away below
+            x = np.concatenate([x, np.zeros((bb - b,) + x.shape[1:], np.float32)])
+        logits, flags = self._forward(torch.from_numpy(x).to(self.device))
+        out = self._probs(logits) if softmax else logits
+        out = out[..., :b, :].cpu().numpy()
+        flagged = 0 if flags is None else int(flags[:b].sum().item())
+        with self._stats_lock:
+            self._stats["windows"] += b
+            self._stats["guard_flagged"] += flagged
+        return out
+
+    def logits_batch(self, windows_btc: np.ndarray) -> np.ndarray:
+        """[B, T, C] -> logits (float32): [B, classes] for one model,
+        [members, B, classes] for an ensemble."""
+        return self._decode(windows_btc, softmax=False)
+
+    def predict_batch(self, windows_btc: np.ndarray) -> np.ndarray:
+        """[B, T, C] -> probabilities [B, classes] (float32)."""
+        return self._decode(windows_btc, softmax=True)
+
+    def predict(self, window_tc: np.ndarray) -> Tuple[np.ndarray, str]:
+        """One [T, C] window -> (probs [classes] float32, label) — the
+        reference SimplePredictor.predict contract."""
+        probs = self.predict_batch(np.asarray(window_tc)[None])[0]
+        return probs.astype(np.float32), self.class_names[int(np.argmax(probs))]
+
+    @torch.no_grad()
+    def warmup(self, batch_sizes: Sequence[int] = (1,)) -> None:
+        """Run zero windows of each bucketed size once (builds the kernel
+        libraries and the cuBLAS handles before the first real request);
+        counts nothing."""
+        t, c = self.config.window_samples, self.config.num_channels
+        for b in batch_sizes:
+            self._forward(torch.zeros((_bucket(b), t, c), dtype=torch.float32, device=self.device))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+def load_params(path: str, model: str):
+    """A native .npz pytree, or a reference .pth (LSTM families only)."""
+    if str(path).endswith(".npz"):
+        return load_params_npz(path)
+    if not model.startswith("lstm"):
+        raise ValueError(f".pth checkpoints are LSTM-family; got model={model!r}")
+    return load_decoder_params(path)
+
+
+class InferenceEngine(_ServingBase):
     def __init__(
         self,
         model_path: Optional[str] = None,
@@ -67,33 +147,25 @@ class InferenceEngine:
         class_names: Optional[Sequence[str]] = None,
         sample_rate: Optional[int] = None,
         model: str = "lstm",
+        model_kw: Optional[dict] = None,
         device: DeviceLike = None,
     ):
-        """`model_path` is a native .npz pytree or a reference .pth;
-        `params` a parameter pytree (numpy or tensor leaves) instead.
-        `model` is "lstm" or "lstm5"; other families are not ported yet."""
-        if model not in _FAMILIES:
-            raise NotImplementedError(
-                f"model family {model!r} is not ported yet; see ROADMAP.md"
-            )
+        """`model_path` is a native .npz pytree or a reference .pth (LSTM
+        families); `params` a parameter pytree (numpy or tensor leaves)
+        instead. `model` is a family of models/registry.py; `model_kw`
+        overrides its config (e.g. whiten=True for a whitened logcov
+        checkpoint)."""
+        self._spec = get_model(model, **(model_kw or {}))
         self.device = resolve_device(device)
         _disable_tf32()
         if params is None:
             if model_path is None:
                 raise ValueError("need model_path or params")
-            if str(model_path).endswith(".npz"):
-                params = load_params_npz(model_path)
-            else:
-                params = load_decoder_params(model_path)
+            params = load_params(model_path, model)
         self.params = params_from_jax(params, self.device)
+        self._is_lstm = model.startswith("lstm")
 
-        num_classes, names = _FAMILIES[model]
-        # Serving default: the fast filter (float32, the kernel route).
-        config = config or PipelineConfig(
-            class_names=names,
-            decoder=DecoderConfig(num_classes=num_classes),
-            filter=FilterConfig(precision="fast"),
-        )
+        config = config or _serving_config(self._spec, model)
         if sample_rate is not None and sample_rate != config.sample_rate:
             # reference quirk: the predictor adopts the stream's reported
             # sample rate; the filter is rate-independent, so this only
@@ -108,59 +180,12 @@ class InferenceEngine:
             )
         self.config = config
         self.class_names = tuple(class_names or config.class_names)
-        self._stats = {"windows": 0, "guard_flagged": 0}
-        self._stats_lock = threading.Lock()
+        self._init_serving()
 
-    @property
-    def stats(self) -> Dict[str, int]:
-        """{"windows", "guard_flagged"}; the LSTM has no domain guard, so
-        guard_flagged stays 0."""
-        with self._stats_lock:
-            return dict(self._stats)
-
-    @torch.no_grad()
-    def _logits(self, windows_btc: torch.Tensor) -> torch.Tensor:
+    def _forward(self, windows_btc: torch.Tensor):
         filtered = mai_filter_batch(windows_btc, self.config.filter, device=self.device)
-        return decoder_logits(self.params, filtered, self.config.decoder)
-
-    def _decode(self, windows_btc, softmax: bool) -> np.ndarray:
-        x = np.asarray(windows_btc, dtype=np.float32)
-        if x.ndim != 3:
-            raise ValueError(f"expected windows [B, T, C], got shape {x.shape}")
-        b = x.shape[0]
-        if b == 0:
-            return np.zeros((0, len(self.class_names)), np.float32)
-        bb = _bucket(b)
-        if bb != b:  # zero windows, sliced away below
-            x = np.concatenate([x, np.zeros((bb - b,) + x.shape[1:], np.float32)])
-        out = self._logits(torch.from_numpy(x).to(self.device))
-        if softmax:
-            out = torch.softmax(out, dim=-1)
-        out = out[:b].cpu().numpy()
-        with self._stats_lock:
-            self._stats["windows"] += b
-        return out
-
-    def logits_batch(self, windows_btc: np.ndarray) -> np.ndarray:
-        """[B, T, C] -> logits [B, num_classes] (float32)."""
-        return self._decode(windows_btc, softmax=False)
-
-    def predict_batch(self, windows_btc: np.ndarray) -> np.ndarray:
-        """[B, T, C] -> probabilities [B, num_classes] (float32)."""
-        return self._decode(windows_btc, softmax=True)
-
-    def predict(self, window_tc: np.ndarray) -> Tuple[np.ndarray, str]:
-        """One [T, C] window -> (probs [classes] float32, label) — the
-        reference SimplePredictor.predict contract."""
-        probs = self.predict_batch(np.asarray(window_tc)[None])[0]
-        return probs.astype(np.float32), self.class_names[int(np.argmax(probs))]
-
-    def warmup(self, batch_sizes: Sequence[int] = (1,)) -> None:
-        """Run zero windows of each bucketed size once (builds the kernel
-        library and the cuBLAS handles before the first real request)."""
-        t, c = self.config.window_samples, self.config.num_channels
-        for b in batch_sizes:
-            x = torch.zeros((_bucket(b), t, c), dtype=torch.float32, device=self.device)
-            self._logits(x)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        if self._is_lstm:
+            # honours a custom DecoderConfig coming through PipelineConfig
+            return decoder_logits(self.params, filtered, self.config.decoder), None
+        logits, aux = self._spec.apply_ex(self.params, filtered)
+        return logits, aux["domain_flags"]

@@ -22,6 +22,12 @@ pair-sums CUDA kernel. (The JAX tester passes PipelineConfig(), whose
 "highest" filter is float32 stages on a TPU and would be float64 here.)
 The engine runs on CUDA unless `device="cpu"` is passed. `serial_port`
 takes a board spec ("synthetic", "replay:<file.npy>") or a Board object.
+
+CLI (`main`, the counterpart of the JAX `nsd-decode`): serve a checkpoint,
+or a fit_ensemble manifest through EnsembleEngine, e.g. the flagship
+
+  python -m neural_speech_decoding_tpu_torch.runtime.tester \
+      --model checkpoints/logcov8wd_ens_manifest.json --board synthetic --speed 64
 """
 
 from __future__ import annotations
@@ -35,7 +41,10 @@ from typing import Optional
 
 import numpy as np
 
+from neural_speech_decoding_tpu_torch.models.registry import parse_model_kw
+from neural_speech_decoding_tpu_torch.runtime.board import open_board
 from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
 from neural_speech_decoding_tpu_torch.runtime.streaming import StreamingProducer
 from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, resolve_device
 from neural_speech_decoding_tpu_torch.utils.timing import LatencyStats
@@ -94,7 +103,8 @@ def run_trials_ex(
     device: DeviceLike = None,
 ):
     """run_trials + RunStats. See the module docstring for semantics.
-    `model` is "lstm" or "lstm5"; `device` places a lazily built engine."""
+    `model` is a family of models/registry.py; `device` places a lazily
+    built engine."""
     if engine is None:
         device = resolve_device(device)  # raise before the producer starts
         if model_path is None:
@@ -204,3 +214,68 @@ def run_trials(
         device=device,
     )
     return result
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Run a decoding snapshot (PyTorch port)")
+    ap.add_argument("--trials", type=int, default=10)
+    ap.add_argument("--board", default=DEFAULT_SERIAL,
+                    help="board spec: synthetic | replay:<file.npy>")
+    ap.add_argument("--speed", type=float, default=1.0,
+                    help="replay/synthetic time acceleration")
+    ap.add_argument(
+        "--model", default=None,
+        help="checkpoint path (.pth or .npz), or a fit_ensemble "
+             "*_manifest.json to serve the seed ensemble",
+    )
+    ap.add_argument("--family", default="lstm",
+                    help="decoder family: lstm | lstm5 | logcov8 | logcov8_5 | ...")
+    ap.add_argument(
+        "--model-kw", action="append", default=[], metavar="KEY=VALUE",
+        help="model-config override for the family (repeatable), e.g. "
+             "--model-kw whiten=true for a whitened logcov checkpoint",
+    )
+    ap.add_argument("--combine", default="mean", choices=("mean", "median"),
+                    help="ensemble member combiner (manifest serving only)")
+    ap.add_argument("--window-seconds", type=float, default=5.0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the current CUDA device)")
+    args = ap.parse_args(argv)
+
+    board = args.board
+    if args.speed != 1.0:
+        board = open_board(args.board, speed=args.speed)
+    model_kw = parse_model_kw(args.model_kw)
+
+    engine = None
+    if args.model and args.model.endswith(".json"):
+        # explicit --model-kw overrides win over the manifest's recorded kw
+        engine = EnsembleEngine.from_manifest(
+            args.model, combine=args.combine, device=args.device,
+            **({"model_kw": model_kw} if model_kw else {}),
+        )
+    elif model_kw:
+        engine = InferenceEngine(
+            args.model or default_model_path(),
+            model=args.family,
+            model_kw=model_kw,
+            class_names=("Food", "Water", "None") if args.family == "lstm" else None,
+            device=args.device,
+        )
+
+    _, stats = run_trials_ex(
+        trials=args.trials,
+        serial_port=board,
+        window_seconds=args.window_seconds,
+        model_path=None if engine is not None else args.model,
+        model=args.family,
+        engine=engine,
+        device=args.device,
+    )
+    print(f"windows/s: {stats.windows_per_second:.3f}  {stats.latency}")
+
+
+if __name__ == "__main__":
+    main()

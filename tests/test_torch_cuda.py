@@ -1,11 +1,13 @@
-"""Tests of the port that need the card: the CUDA pair-sums kernel against
-its plain twin, and the engine on CUDA against the engine on the CPU.
+"""Tests of the port that need the card: each CUDA kernel (pair sums, band
+grams, log-covariance features) against its plain twin, and the engines on
+CUDA against the same engines on the CPU.
 
 No JAX here (the machine with the card has none); run there with
   python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest -p no:cacheprovider
 Elsewhere every test skips.
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -17,9 +19,18 @@ from neural_speech_decoding_tpu_torch.ops.kernels.kuramoto import (
     kuramoto_pair_sums,
     kuramoto_pair_sums_plain,
 )
+from neural_speech_decoding_tpu_torch.config import FilterConfig
+from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
+from neural_speech_decoding_tpu_torch.models import logcov
+from neural_speech_decoding_tpu_torch.models.registry import get_model
+from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams, band_grams_plain
+from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats, logcov_feats_plain
+from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
 from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
 
 REPO = Path(__file__).resolve().parents[1]
+FLAGSHIP = REPO / "checkpoints" / "logcov8wd_ens_manifest.json"
 T, C = 625, 8
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +84,137 @@ def test_engine_cuda_matches_cpu(cuda):
     gpu = InferenceEngine(path).logits_batch(x)
     cpu = InferenceEngine(path, device="cpu").logits_batch(x)
     assert np.abs(gpu - cpu).max() <= 1e-4
+
+
+def _logcov_kernel_inputs(batch: int, dev, cold: bool):
+    """The flagship's kernel inputs for `batch` board-like windows through
+    the card's filter: window 0 has channel 3 dead (from _windows) and
+    channel 2 railed (x1e6), window 1 is
+    all zero, window 2 has channel 5 at 0.002 sin. With `cold` the shipped
+    whitener's gain on channel 5 is cut tenfold, so that the guard fires
+    (under the shipped whitener it cannot: cond(W W^T) <= 21)."""
+    x = _windows(batch, batch + 100) / 40.0
+    if batch >= 3:
+        x[0, :, 2] *= 1e6
+        x[1] = 0.0
+        x[2, :, 5] = 0.002 * np.sin(np.arange(T, dtype=np.float32) * 0.3)
+    filtered = mai_filter_batch(x, FilterConfig(precision="fast"), device=dev)
+    cfg = get_model("logcov8", whiten=True, dropout=0.0).config
+    w = torch.from_numpy(load_params_npz(REPO / "checkpoints" / "logcov8wd_ens_s0.npz")["whitener"]).to(dev)
+    if cold:
+        w = w * torch.where(torch.arange(8, device=dev) == 5, 0.1, 1.0)[None, None, :]
+    return logcov.kernel_inputs(filtered, w, cfg)
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1024])
+def test_band_grams_kernel_matches_plain(cuda, batch):
+    """Pair sums of at most 80 float32 products (logcov8), summed in
+    different orders by the kernel (4 chains, then pairwise) and by the
+    twin (cuBLAS): a running float32 sum of n terms errs by at most
+    n * 2^-24 of the sum of |terms|, which is at most max|G| of the window;
+    for the widest shipped band (180 rows) that is 1.1e-5. So the limit is
+    1e-5 of each window's max|G| (the railed window is 1e12 times larger
+    than the others, so a limit on the whole batch would say nothing)."""
+    k = _logcov_kernel_inputs(batch, cuda, cold=False)
+    before = kernels.launches()["bandcov_grams"]
+    got = band_grams(k.yw, k.offsets)
+    torch.cuda.synchronize()
+    assert kernels.launches()["bandcov_grams"] == before + 1
+    want = band_grams_plain(k.yw, k.offsets)
+    assert got.shape == (batch, 8 * 36) and torch.isfinite(got).all()
+    per_window = want.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    assert ((got - want).abs() / per_window).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("family", ["logcov", "logcov12"])
+def test_band_grams_kernel_other_band_layouts(cuda, family):
+    """The kernel is generic in R and nb: the broad 4-band layout (widest
+    band 180 rows) and the 12-band one (R = 900), random rows, B = 37,
+    against the twin with the same per-window limit."""
+    _, slices = logcov._band_projector(T, get_model(family).config)
+    offsets = (0,) + tuple(sl.stop for sl in slices)
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal((37, offsets[-1], C)).astype(np.float32)).to(cuda)
+    got = band_grams(y, offsets)
+    want = band_grams_plain(y, offsets)
+    torch.cuda.synchronize()
+    assert got.shape == (37, (len(offsets) - 1) * 36)
+    per_window = want.abs().amax(dim=1, keepdim=True)
+    assert ((got - want).abs() / per_window).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1024])
+@pytest.mark.parametrize("cold", [False, True])
+def test_logcov_feats_kernel_matches_plain(cuda, batch, cold):
+    """Features within 5e-5 of each window's max(scale, 1) (the JAX
+    package's kernel-vs-stages limit, per window so that the railed
+    window's large features do not loosen it for the others), flags equal:
+    the guard's arithmetic is the twin's, op for op, with no FMA
+    contraction."""
+    k = _logcov_kernel_inputs(batch, cuda, cold)
+    grams = band_grams_plain(k.yw, k.offsets)
+    before = kernels.launches()["logcov_feats"]
+    feats, flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+    torch.cuda.synchronize()
+    assert kernels.launches()["logcov_feats"] == before + 1
+    want, want_flags = logcov_feats_plain(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+    assert feats.shape == (batch, 288) and flags.shape == (batch, 8) and flags.dtype == torch.bool
+    assert torch.equal(flags, want_flags)
+    if cold and batch >= 3:
+        assert flags[0].all() and flags[2].any() and not flags.all()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    assert ((feats - want).abs() / scale).max().item() <= 5e-5
+
+
+def test_stages_path_runs_the_gram_kernel(cuda):
+    """fused="stages" (and guard_domain=False) on a CUDA tensor still send
+    the band grams through the gram kernel, as the JAX package sends them
+    through its Pallas kernel on the TPU; the stages path agrees with the
+    kernel route within 5e-5 of each window's max(scale, 1)."""
+    cfg = get_model("logcov8", whiten=True, dropout=0.0).config
+    w = torch.from_numpy(load_params_npz(REPO / "checkpoints" / "logcov8wd_ens_s0.npz")["whitener"]).to(cuda)
+    x = mai_filter_batch(_windows(37, 5) / 40.0, FilterConfig(precision="fast"), device=cuda)
+    want = logcov.logcov_features(x, cfg, w)
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    for kw in ({"fused": "stages"}, {"guard_domain": False}):
+        kernels.reset_launches()
+        got = logcov.logcov_features(x, dataclasses.replace(cfg, **kw), w)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        assert counts["bandcov_grams"] == 1 and counts["logcov_feats"] == 0
+        assert ((got - want).abs() / scale).max().item() <= 5e-5
+
+
+def test_logcov_kernels_reject_bad_input(cuda):
+    k = _logcov_kernel_inputs(4, cuda, cold=False)
+    with pytest.raises(TypeError):
+        band_grams(k.yw.double(), k.offsets)
+    with pytest.raises(ValueError):
+        band_grams(k.yw[:, :, :4].contiguous(), k.offsets)
+    with pytest.raises(ValueError):
+        band_grams(k.yw, k.offsets[:-1] + (10**6,))
+    with pytest.raises(ValueError):  # misaligned for the float4 loads
+        band_grams(k.yw.reshape(-1)[1 : 1 + 3 * 450 * 8].view(3, 450, 8), k.offsets)
+    grams = band_grams(k.yw, k.offsets)
+    with pytest.raises(ValueError):
+        logcov_feats(grams, k.tr_scaled.cpu(), k.wwt_pairs, k.coeffs, **k.scalars)
+    with pytest.raises(TypeError):
+        logcov_feats(grams.double(), k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+    with pytest.raises(ValueError):
+        logcov_feats(grams[:, :36].contiguous(), k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+    assert band_grams(k.yw[:0], k.offsets).shape == (0, 288)
+
+
+def test_flagship_ensemble_cuda_matches_cpu(cuda):
+    """The flagship manifest on the card (all three kernels) against the
+    same engine on the CPU (the twins): probabilities within 1e-4, equal
+    guard counts."""
+    x = _windows(16, 9) / 40.0
+    kernels.reset_launches()
+    gpu = EnsembleEngine.from_manifest(str(FLAGSHIP))
+    got = gpu.predict_batch(x)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    assert all(counts[name] == 1 for name in ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats"))
+    cpu = EnsembleEngine.from_manifest(str(FLAGSHIP), device="cpu")
+    assert np.abs(got - cpu.predict_batch(x)).max() <= 1e-4
+    assert gpu.stats == cpu.stats

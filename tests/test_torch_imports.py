@@ -25,7 +25,8 @@ def _imported_modules(path: Path):
 def test_port_files_exist():
     assert (PORT / "__init__.py").is_file()
     assert (REPO / "chip_smoke.py").is_file()
-    assert (PORT / "csrc" / "kuramoto_pair_sums.cu").is_file()
+    for name in ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats"):
+        assert (PORT / "csrc" / f"{name}.cu").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
