@@ -16,6 +16,11 @@ of the checkout. One line per phase, each with its elapsed seconds:
      both against the same arithmetic in float64; kernel, twin and bound
      times, and the library yardstick where one PyTorch call computes the
      same function
+  3c. the slice-3 kernels the same way: the feature kernel in Chebyshev
+     mode (flags also against the rational mode's), the Clenshaw matrix
+     log (on the unwhitened band covariances; library yardstick: the eigh
+     route, which computes the exact log) and the zero-phase IIR cascade
+     (also against scipy in float64; its twin, a loop over T, timed once)
   4. the LSTM path: InferenceEngine.predict_batch on 1024 synthetic raw
      windows, with the kernels' launch counts set to 0 just before and read
      just after; then 16 of those windows against the same engine on the
@@ -31,6 +36,16 @@ of the checkout. One line per phase, each with its elapsed seconds:
      deadline, launch counts again set to 0 before and read after
   5b. run_trials_ex(trials=3) with the flagship engine on the card, the
      same way
+  4c. the flagship served with logm="chebyshev" (model_kw), predict_batch
+     on the 1024 windows: launch counts (bandcov_grams and
+     logcov_feats_chebyshev once, logm_clenshaw never), cold and warm
+     times, 16 windows against the same engine on the CPU
+  5c. run_trials_ex(trials=3) with that engine
+  4d. the unwhitened checkpoints/logcov8_ens_manifest.json with
+     logm="chebyshev" (the stages path: logm_clenshaw at least once a call),
+     predict_batch on the 1024 windows, card against CPU
+  4e. fused_preprocess(collector_stages()) on 1024 board-like windows
+     against scipy float64 (iir_cascade once)
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -52,6 +67,8 @@ ROOT = Path(__file__).resolve().parent
 CHECKPOINT = ROOT / "checkpoints" / "lstm3_retrained.npz"
 FLAGSHIP = ROOT / "checkpoints" / "logcov8wd_ens_manifest.json"
 FLAGSHIP_MEMBER = ROOT / "checkpoints" / "logcov8wd_ens_s0.npz"
+UNWHITENED = ROOT / "checkpoints" / "logcov8_ens_manifest.json"
+CHEB_KW = {"whiten": True, "dropout": 0.0, "logm": "chebyshev"}
 T, C = 625, 8
 PAIRS = C * (C + 1) // 2
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
@@ -72,9 +89,21 @@ BAND_GRAMS_REL_TOL = 1e-5
 # with the scale taken per window, as for the grams: a railed window's
 # features (about 33) would loosen the limit for the others (about 2.4).
 LOGCOV_FEATS_TOL = 5e-5
+# Clenshaw: the JAX package's kernel-vs-scan limit (tests/test_pallas_logm.py:66),
+# absolute, on in-domain spectra (the unwhitened band covariances: the
+# shrinkage floor keeps them in [lo, hi]).
+LOGM_ABS_TOL = 5e-5
+# IIR cascade against its twin, over each window's max |twin|: both are
+# float32 chains of 14 sections each way; the first card run (B = 37) read
+# 8.5e-6 of scale between them, 4.5e-6 (kernel) and 7.6e-6 (twin) against
+# float64. The limit leaves room for the larger batches' extremes.
+IIR_TWIN_TOL = 3e-5
+IIR_SCIPY_TOL = 1e-4  # of scale: the JAX package's own limit (tests/test_pallas_iir.py:36)
 LOGIT_TOL = 1e-4  # the JAX package's f32 fidelity budget
 PROB_TOL = 1e-4
 RUN_TRIALS_DEADLINE_S = 120
+BATCHES = (1, 37, 1024, 16384)  # the kernel checks' batch sizes
+TIMED = (1024, 16384)  # those also timed; the report's times are at the last
 
 _T0 = time.perf_counter()
 
@@ -157,6 +186,47 @@ def logcov_feats_bound_ms(b: int, nb: int, terms: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def eig_poly_ops(degree: int) -> float:
+    """Least operations for a degree-`degree` polynomial of one symmetric
+    C x C matrix: an eigendecomposition by the symmetric QR algorithm
+    (about 9 C^3 with the eigenvectors, Golub and Van Loan), the scalar
+    Clenshaw at C eigenvalues (3 operations a degree) and V f(L) V^T
+    (2 C^3). The matrix recurrence (2 C^2 (C + 1) degree with symmetry)
+    is the kernels' choice, not the floor."""
+    return 9 * C**3 + 3 * degree * C + 2 * C**3
+
+
+def logcov_feats_cheb_bound_ms(b: int, nb: int, degree: int) -> tuple[float, str]:
+    """Least time for the Chebyshev-mode features of b windows: the bytes
+    of the rational mode; per matrix the polynomial's least work plus the
+    Cholesky guard (C^3 / 3) and 6 elementwise operations per pair."""
+    per_matrix = eig_poly_ops(degree) + C**3 / 3 + 6 * PAIRS
+    nbytes = 4 * (2 * b * nb * PAIRS + b * nb + nb * PAIRS) + b * nb
+    t_ops = b * nb * per_matrix / PEAK_F32_FLOP_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def clenshaw_bound_ms(m: int, degree: int) -> tuple[float, str]:
+    """Least time for the series of m matrices: t read once and the result
+    written once (64 floats each), the polynomial's least work."""
+    nbytes = 4 * 2 * C * C * m
+    t_ops = m * eig_poly_ops(degree) / PEAK_F32_FLOP_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def iir_bound_ms(b: int, sections: int) -> tuple[float, str]:
+    """Least time for the zero-phase cascade of b windows: x read once and
+    the result written once; 9 operations a section and sample in each
+    direction (out = b0 y + z0; z0 = b1 y - a1 out + z1; z1 = b2 y - a2 out)."""
+    samples = b * T * C
+    nbytes = 4 * 2 * samples
+    t_ops = 2 * 9 * sections * samples / PEAK_F32_FLOP_S
+    t_bytes = nbytes / PEAK_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def padded_bands(y: torch.Tensor, offsets) -> torch.Tensor:
     """The bands of y [B, R, 8] zero-padded to the widest one,
     [B * nb, Rmax, 8]: the input of the one batched matmul timed beside the
@@ -168,7 +238,7 @@ def padded_bands(y: torch.Tensor, offsets) -> torch.Tensor:
     return padded.reshape(-1, max(widths), C)
 
 
-def logcov_kernel_inputs(b: int, seed: int, dev):
+def logcov_kernel_inputs(b: int, seed: int, dev, logm: str = "rational"):
     """The flagship's kernel inputs for b board-like windows through the
     card's filter. Window 0 has channel 2 railed (x1e6), window 1 is all
     zero, window 2 has channel 5 at 0.002 sin. The whitener is the first
@@ -188,10 +258,178 @@ def logcov_kernel_inputs(b: int, seed: int, dev):
         x[1] = 0.0
         x[2, :, 5] = 0.002 * np.sin(np.arange(T, dtype=np.float32) * 0.3)
     filtered = mai_filter_batch(x, FilterConfig(precision="fast"), device=dev)
-    cfg = get_model("logcov8", whiten=True, dropout=0.0).config
+    cfg = get_model("logcov8", whiten=True, dropout=0.0, logm=logm).config
     w = torch.from_numpy(load_params_npz(FLAGSHIP_MEMBER)["whitener"]).to(dev)
     w = w * torch.where(torch.arange(C, device=dev) == 5, 0.1, 1.0)[None, None, :]
     return logcov.kernel_inputs(filtered, w, cfg)
+
+
+def scipy_zero_phase(x_btc: np.ndarray, sos: np.ndarray) -> np.ndarray:
+    """The cascade's semantics in float64 (scipy): every section forward,
+    then every section backward, each from a zero state, no padding."""
+    import scipy.signal
+
+    fwd = scipy.signal.sosfilt(sos, x_btc, axis=1)
+    return scipy.signal.sosfilt(sos, fwd[:, ::-1], axis=1)[:, ::-1]
+
+
+def check_chebyshev_feats(dev):
+    """Phase 3c: the feature kernel in Chebyshev mode against its twin and
+    float64 on the gram kernel's output, flags against the twin's and the
+    rational mode's. Returns (max abs err, {B: times})."""
+    from neural_speech_decoding_tpu_torch.models import logcov
+    from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams
+    from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats, logcov_feats_plain
+
+    err_abs, times = 0.0, {}
+    for b in BATCHES:
+        k = logcov_kernel_inputs(b, seed=b + 1, dev=dev, logm="chebyshev")
+        lo, hi = k.scalars["lo"], k.scalars["hi"]
+        c0, poles, weights = logcov._rational_log_coeffs(lo, hi, logcov.LogCovConfig().logm_terms)
+        grams = band_grams(k.yw, k.offsets)
+        feats, flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+        _, rational_flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, (c0,) + poles + weights,
+                                         **dict(k.scalars, logm="rational"))
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want, want_flags = logcov_feats_plain(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+        end.record()
+        exact, exact_flags = logcov_feats_plain(
+            grams.double(), k.tr_scaled.double(), k.wwt_pairs.double(), k.coeffs, **k.scalars
+        )
+        torch.cuda.synchronize()
+        diff = (feats - want).abs()
+        norm = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)  # each window's max(scale, 1)
+        err = (diff / norm).max().item()
+        if not (torch.isfinite(feats).all() and err <= LOGCOV_FEATS_TOL):
+            raise AssertionError(f"chebyshev feats B={b}: max err {err} of max(scale, 1) > {LOGCOV_FEATS_TOL}")
+        if not (torch.equal(flags, want_flags) and torch.equal(flags, rational_flags)):
+            raise AssertionError(f"chebyshev feats B={b}: flags differ from the twin's or the rational mode's")
+        if b >= 3 and not (flags[0].all() and flags[2].any() and not flags.all()):
+            raise AssertionError(f"chebyshev feats B={b}: the guard did not fire as the inputs demand")
+        err_abs = max(err_abs, diff.max().item())
+        line = (f"chebyshev feats B={b}: max err {err:.3e} of each window's max(scale, 1) "
+                f"(tol {LOGCOV_FEATS_TOL}; largest scale {norm.max().item():.3f}), max abs err "
+                f"{diff.max().item():.3e}; flags equal to the twin's and the rational mode's "
+                f"({int(flags.sum())} of {flags.numel()} set); vs float64: kernel max "
+                f"{(feats.double() - exact).abs().max().item():.3e}, twin max "
+                f"{(want.double() - exact).abs().max().item():.3e}, float64 flags differ in "
+                f"{int((exact_flags != flags).sum())}")
+        if b in TIMED:
+            nb, degree = len(k.offsets) - 1, len(k.coeffs) - 1
+            f_ms = cuda_ms(lambda: logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars), 20)
+            p_ms = start.elapsed_time(end)  # the twin, timed once (its first call)
+            bound, by = logcov_feats_cheb_bound_ms(b, nb, degree)
+            times[b] = (f_ms, p_ms, bound, by, None)
+            line += f"; kernel {f_ms:.4f} ms, plain {p_ms:.4f} ms (once), bound {bound:.4f} ms ({by})"
+        phase(line)
+        del k, grams, feats, want, exact
+    return err_abs, times
+
+
+def check_clenshaw(dev):
+    """Phase 3c: the Clenshaw kernel on the unwhitened logcov8 band
+    covariances of board-like windows (in the domain by the shrinkage
+    floor), against its twin and float64; the port's logm="eigh" route
+    (torch.linalg.eigh in batches of at most 16384 matrices, log, product)
+    as the library yardstick: it computes the exact log, not the
+    polynomial. Returns
+    (max abs err, {B: times})."""
+    from neural_speech_decoding_tpu_torch.config import FilterConfig
+    from neural_speech_decoding_tpu_torch.models import logcov
+    from neural_speech_decoding_tpu_torch.models.registry import get_model
+    from neural_speech_decoding_tpu_torch.ops import spd
+    from neural_speech_decoding_tpu_torch.ops.kernels.logm import (
+        clenshaw,
+        logm_spd_chebyshev,
+        logm_spd_chebyshev_plain,
+    )
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
+
+    cfg = get_model("logcov8", logm="chebyshev").config
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+
+    err_abs, times = 0.0, {}
+    for b in BATCHES:
+        filtered = mai_filter_batch(synthetic_windows(b, seed=b + 2), FilterConfig(precision="fast"), device=dev)
+        s = logcov.band_covariances(filtered, cfg)  # [b, 8, 8, 8]
+        got = logm_spd_chebyshev(s, coeffs, lo, hi)
+        want = logm_spd_chebyshev_plain(s, coeffs, lo, hi)
+        exact = logm_spd_chebyshev_plain(s.double(), coeffs, lo, hi)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not (torch.isfinite(got).all() and err <= LOGM_ABS_TOL):
+            raise AssertionError(f"clenshaw B={b}: max abs err {err} > {LOGM_ABS_TOL}")
+        if not torch.equal(got, got.transpose(-1, -2)):
+            raise AssertionError(f"clenshaw B={b}: the result is not symmetric")
+        err_abs = max(err_abs, err)
+        line = (f"logm clenshaw B={b} ({s.shape[0] * s.shape[1]} matrices, degree {cfg.cheb_degree}): "
+                f"max abs err {err:.3e} (tol {LOGM_ABS_TOL}); vs float64: kernel max "
+                f"{(got.double() - exact).abs().max().item():.3e}, twin max "
+                f"{(want.double() - exact).abs().max().item():.3e}; largest |logm| {exact.abs().max().item():.3f}")
+        if b in TIMED:
+            t, _ = spd.chebyshev_domain_map(s, lo, hi)
+            t = t.reshape(-1, C, C).contiguous()
+            k_ms = cuda_ms(lambda: clenshaw(t, coeffs), 20)
+            p_ms = cuda_ms(lambda: spd.clenshaw(t, coeffs), 2)
+            w_ms = cuda_ms(lambda: logm_spd_chebyshev(s, coeffs, lo, hi), 10)
+            l_ms = cuda_ms(lambda: spd.logm_eigh(s), 3)
+            bound, by = clenshaw_bound_ms(t.shape[0], cfg.cheb_degree)
+            times[b] = (k_ms, p_ms, bound, by, l_ms)
+            line += (f"; kernel {k_ms:.4f} ms (wrapper with the torch map and log(tr/C) {w_ms:.4f} ms), "
+                     f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), library: the logm=eigh route "
+                     f"(eigh in chunks of {spd.EIGH_BATCH} + log + product; the exact log) {l_ms:.4f} ms")
+        phase(line)
+        del filtered, s, got, want, exact
+    return err_abs, times
+
+
+def check_iir(dev):
+    """Phase 3c: the zero-phase IIR cascade on detrended board-like windows
+    against its twin (timed once: a loop over T) and scipy in float64.
+    Returns (max abs err, {B: times})."""
+    from neural_speech_decoding_tpu_torch.ops.kernels.iir import (
+        collector_stages,
+        iir_cascade,
+        iir_cascade_plain,
+        stack_sos,
+    )
+
+    sos = stack_sos(collector_stages())
+    err_abs, times = 0.0, {}
+    for b in BATCHES:
+        x = torch.from_numpy(synthetic_windows(b, seed=b + 3)).to(dev)
+        x = x - x.mean(dim=1, keepdim=True)
+        got = iir_cascade(x, sos)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = iir_cascade_plain(x, sos)
+        end.record()
+        torch.cuda.synchronize()
+        norm = want.abs().amax(dim=(1, 2), keepdim=True)  # each window's max |twin|
+        diff = (got - want).abs()
+        err = (diff / norm).max().item()
+        ref = torch.from_numpy(scipy_zero_phase(x.cpu().double().numpy(), sos).copy())
+        rnorm = ref.abs().amax(dim=(1, 2), keepdim=True)
+        k_ref = ((got.cpu().double() - ref).abs() / rnorm).max().item()
+        p_ref = ((want.cpu().double() - ref).abs() / rnorm).max().item()
+        if not (torch.isfinite(got).all() and err <= IIR_TWIN_TOL and k_ref <= IIR_SCIPY_TOL):
+            raise AssertionError(f"iir B={b}: err {err} of scale vs twin (tol {IIR_TWIN_TOL}), "
+                                 f"{k_ref} vs scipy float64 (tol {IIR_SCIPY_TOL})")
+        err_abs = max(err_abs, diff.max().item())
+        line = (f"iir cascade B={b} ({sos.shape[0]} sections): max err {err:.3e} of each window's scale "
+                f"vs the twin (tol {IIR_TWIN_TOL}), max abs {diff.max().item():.3e}; vs scipy float64: "
+                f"kernel {k_ref:.3e}, twin {p_ref:.3e} (tol {IIR_SCIPY_TOL})")
+        if b in TIMED:
+            k_ms = cuda_ms(lambda: iir_cascade(x, sos), 10)
+            p_ms = start.elapsed_time(end)  # the twin, timed once
+            bound, by = iir_bound_ms(b, sos.shape[0])
+            times[b] = (k_ms, p_ms, bound, by, None)
+            line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms (once), bound {bound:.4f} ms ({by})"
+        phase(line)
+        del x, got, want, ref
+    return err_abs, times
 
 
 def main() -> int:
@@ -221,6 +459,8 @@ def main() -> int:
     from neural_speech_decoding_tpu_torch.runtime.tester import run_trials, run_trials_ex
 
     torch.set_num_threads(1)  # the CPU comparison runs tiny eager ops
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twins' products in full float32
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
     # 1. the card
@@ -233,17 +473,17 @@ def main() -> int:
     print(smi, flush=True)
 
     # 2. build
-    logs = build.build(list(kernels.LAUNCHES))
+    logs = build.build(sorted(set(kernels.SOURCES.values())))
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 phase(f"build {name}: {line.strip()}")
-    phase(f"built {sorted(kernels.LAUNCHES)} ({len(logs)} compiled now)")
+    phase(f"built {sorted(set(kernels.SOURCES.values()))} ({len(logs)} compiled now)")
 
     # 3. kernel against its plain twin
     max_err = 0.0
     times = {}
-    for b in (1, 37, 1024, 16384):
+    for b in BATCHES:
         x = pair_sums_inputs(b, seed=b, device=dev)
         got = kuramoto_pair_sums(x)
         want = kuramoto_pair_sums_plain(x)
@@ -261,7 +501,7 @@ def main() -> int:
                 f"vs float64: kernel max {k64.max().item():.3e} mean {k64.mean().item():.3e}, "
                 f"twin max {p64.max().item():.3e} mean {p64.mean().item():.3e}")
         del exact, k64, p64
-        if b >= 1024:
+        if b in TIMED:
             k_ms = cuda_ms(lambda: kuramoto_pair_sums(x), 20)
             p_ms = cuda_ms(lambda: kuramoto_pair_sums_plain(x), 10)
             bound, by = pair_sums_bound_ms(b)
@@ -273,7 +513,7 @@ def main() -> int:
     # 3 (continued). the flagship's two kernels against their twins
     gram_err = feat_err = 0.0
     logcov_times = {}
-    for b in (1, 37, 1024, 16384):
+    for b in BATCHES:
         k = logcov_kernel_inputs(b, seed=b + 1, dev=dev)
         got = band_grams(k.yw, k.offsets)
         want = band_grams_plain(k.yw, k.offsets)
@@ -315,7 +555,7 @@ def main() -> int:
                  f"{(want_f.double() - exact_f).abs().max().item():.3e}, float64 flags differ in "
                  f"{int((exact_flags != flags).sum())}")
         del exact_f, exact_flags, fdiff
-        if b >= 1024:
+        if b in TIMED:
             nb = len(k.offsets) - 1
             g_ms = cuda_ms(lambda: band_grams(k.yw, k.offsets), 20)
             gp_ms = cuda_ms(lambda: band_grams_plain(k.yw, k.offsets), 10)
@@ -337,6 +577,11 @@ def main() -> int:
         phase(line)
         phase(line2)
         del k, got, want, feats, flags, want_f, want_flags
+
+    # 3c. the slice-3 kernels against their twins
+    cheb_err, cheb_times = check_chebyshev_feats(dev)
+    logm_err, logm_times = check_clenshaw(dev)
+    iir_err, iir_times = check_iir(dev)
 
     # 4. the main path
     engine = InferenceEngine(model_path=str(CHECKPOINT))
@@ -378,7 +623,7 @@ def main() -> int:
     torch.cuda.synchronize()
     f_cold_s = time.perf_counter() - t
     flagship_launches = kernels.launches()
-    if min(flagship_launches.values()) < 1:
+    if min(flagship_launches[n] for n in ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats")) < 1:
         raise AssertionError(f"the flagship path left a kernel unlaunched: {flagship_launches}")
     if fprobs.shape != (1024, 3) or not np.isfinite(fprobs).all():
         raise AssertionError(f"flagship predict_batch: bad probabilities {fprobs.shape}")
@@ -458,7 +703,7 @@ def main() -> int:
         flagship_trial_launches = kernels.launches()
     finally:
         signal.alarm(0)
-    if min(flagship_trial_launches.values()) < 3:
+    if min(flagship_trial_launches[n] for n in ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats")) < 3:
         raise AssertionError(f"flagship run_trials launched a kernel too rarely: {flagship_trial_launches}")
     favg = fresult.avg_probs
     if fresult.trials != 3 or favg is None or favg.shape != (3,) or not np.isfinite(favg).all():
@@ -468,17 +713,114 @@ def main() -> int:
     phase(f"flagship run_trials_ex(3) on SyntheticBoard(speed=64): avg_probs {np.round(favg, 4).tolist()}; "
           f"launches {flagship_trial_launches}")
 
+    # 4c. the flagship served with the Chebyshev matrix log
+    cheb = EnsembleEngine.from_manifest(str(FLAGSHIP), model_kw=CHEB_KW)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    cprobs = cheb.predict_batch(windows)
+    torch.cuda.synchronize()
+    c_cold_s = time.perf_counter() - t
+    cheb_launches = kernels.launches()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(kuramoto_pair_sums=1, bandcov_grams=1, logcov_feats_chebyshev=1)
+    if cheb_launches != want:
+        raise AssertionError(f"chebyshev flagship predict_batch: launches {cheb_launches}, want {want}")
+    if cprobs.shape != (1024, 3) or not np.isfinite(cprobs).all() or np.abs(cprobs.sum(1) - 1).max() > 1e-5:
+        raise AssertionError("chebyshev flagship predict_batch: bad probabilities")
+    agree = float((cprobs.argmax(1) == fprobs.argmax(1)).mean())
+    phase(f"chebyshev flagship predict_batch(1024) on {dev}: {c_cold_s:.3f} s first call; launches "
+          f"{cheb_launches}; argmax counts {np.bincount(cprobs.argmax(1), minlength=3).tolist()}, "
+          f"argmax equal to the rational flagship's on {agree:.4f} of the windows, max |delta prob| "
+          f"{np.abs(cprobs - fprobs).max():.3e}")
+    cx_ms = cuda_ms(lambda: cheb.featurize(ffiltered), 10)
+    cw_ms = cuda_ms(lambda: cheb.predict_batch(windows), 5)
+    phase(f"chebyshev flagship predict_batch(1024) warm {cw_ms:.3f} ms; features {cx_ms:.3f} ms")
+
+    def card_vs_cpu(engine_gpu, manifest, model_kw, label):
+        before = engine_gpu.stats
+        gpu_probs = engine_gpu.predict_batch(w16)
+        gpu_flagged = engine_gpu.stats["guard_flagged"] - before["guard_flagged"]
+        cpu_engine = EnsembleEngine.from_manifest(str(manifest), model_kw=model_kw, device="cpu")
+        cpu_probs = cpu_engine.predict_batch(w16)
+        dp = float(np.abs(gpu_probs - cpu_probs).max())
+        if not (dp <= PROB_TOL and np.array_equal(gpu_probs.argmax(1), cpu_probs.argmax(1))
+                and gpu_flagged == cpu_engine.stats["guard_flagged"]):
+            raise AssertionError(f"{label} cuda vs cpu: |dprob| {dp}, guard counts "
+                                 f"{gpu_flagged} vs {cpu_engine.stats['guard_flagged']}")
+        phase(f"{label} cuda vs cpu, 16 windows: max |delta prob| {dp:.3e} (tol {PROB_TOL}), argmax "
+              f"equal; guard_flagged {gpu_flagged} = {cpu_engine.stats['guard_flagged']}")
+
+    card_vs_cpu(cheb, FLAGSHIP, CHEB_KW, "chebyshev flagship")
+
+    # 5c. the Chebyshev flagship under run_trials_ex
+    signal.alarm(RUN_TRIALS_DEADLINE_S)
+    try:
+        kernels.reset_launches()
+        cresult, _ = run_trials_ex(trials=3, serial_port=SyntheticBoard(speed=64.0), verbose=False, engine=cheb)
+        torch.cuda.synchronize()
+        cheb_trial_launches = kernels.launches()
+    finally:
+        signal.alarm(0)
+    if min(cheb_trial_launches[n] for n in ("bandcov_grams", "logcov_feats_chebyshev")) < 3:
+        raise AssertionError(f"chebyshev run_trials launched a kernel too rarely: {cheb_trial_launches}")
+    cavg = cresult.avg_probs
+    if cresult.trials != 3 or cavg is None or cavg.shape != (3,) or abs(float(cavg.sum()) - 1.0) > 1e-5:
+        raise AssertionError(f"chebyshev run_trials: bad result {cresult}")
+    phase(f"chebyshev flagship run_trials_ex(3) on SyntheticBoard(speed=64): avg_probs "
+          f"{np.round(cavg, 4).tolist()}; launches {cheb_trial_launches}")
+
+    # 4d. the unwhitened ensemble with the Chebyshev log: the stages path
+    unw = EnsembleEngine.from_manifest(str(UNWHITENED), model_kw={"logm": "chebyshev"})
+    kernels.reset_launches()
+    t = time.perf_counter()
+    uprobs = unw.predict_batch(windows)
+    torch.cuda.synchronize()
+    u_cold_s = time.perf_counter() - t
+    unw_launches = kernels.launches()
+    if unw_launches["logm_clenshaw"] < 1 or unw_launches["logcov_feats_chebyshev"] or unw_launches["logcov_feats"]:
+        raise AssertionError(f"unwhitened chebyshev predict_batch: launches {unw_launches}")
+    if uprobs.shape != (1024, 3) or not np.isfinite(uprobs).all() or np.abs(uprobs.sum(1) - 1).max() > 1e-5:
+        raise AssertionError("unwhitened chebyshev predict_batch: bad probabilities")
+    uw_ms = cuda_ms(lambda: unw.predict_batch(windows), 5)
+    phase(f"unwhitened logcov8_ens chebyshev predict_batch(1024) on {dev}: {u_cold_s:.3f} s first call, "
+          f"warm {uw_ms:.3f} ms; {unw.num_members} members, shared features {unw._shared_featurize}; "
+          f"launches {unw_launches}; argmax counts {np.bincount(uprobs.argmax(1), minlength=3).tolist()}")
+    card_vs_cpu(unw, UNWHITENED, {"logm": "chebyshev"}, "unwhitened chebyshev")
+
+    # 4e. the fused zero-phase preprocessing of board-like windows
+    from neural_speech_decoding_tpu_torch.ops.kernels.iir import collector_stages, fused_preprocess, stack_sos
+
+    stages = collector_stages()
+    kernels.reset_launches()
+    pre = fused_preprocess(windows, stages)
+    torch.cuda.synchronize()
+    iir_launches = kernels.launches()
+    if iir_launches["iir_cascade"] != 1 or pre.shape != windows.shape or not torch.isfinite(pre).all():
+        raise AssertionError(f"fused_preprocess: launches {iir_launches}, shape {tuple(pre.shape)}")
+    xd = windows.astype(np.float64)
+    ref = scipy_zero_phase(xd - xd.mean(axis=1, keepdims=True), stack_sos(stages))
+    pre_err = float((np.abs(pre.cpu().numpy() - ref) / np.abs(ref).max(axis=(1, 2), keepdims=True)).max())
+    if not pre_err <= IIR_SCIPY_TOL:
+        raise AssertionError(f"fused_preprocess vs scipy float64: {pre_err} of scale > {IIR_SCIPY_TOL}")
+    pw_ms = cuda_ms(lambda: fused_preprocess(windows, stages), 5)
+    phase(f"fused_preprocess(1024, collector_stages) on {dev}: {pre_err:.3e} of each window's scale vs "
+          f"scipy float64 (tol {IIR_SCIPY_TOL}); warm {pw_ms:.3f} ms with the host copy; launches {iir_launches}")
+
     # 6. report
-    k_ms, p_ms, bound, by = times[16384]
-    phase(f"kernel times below are at B=16384 (batch 1024: kernel {times[1024][0]:.4f} ms, "
-          f"plain {times[1024][1]:.4f} ms, bound {times[1024][2]:.4f} ms)")
+    k_ms, p_ms, bound, by = times[TIMED[-1]]
+    phase(f"kernel times below are at B={TIMED[-1]} (batch {TIMED[0]}: kernel {times[TIMED[0]][0]:.4f} ms, "
+          f"plain {times[TIMED[0]][1]:.4f} ms, bound {times[TIMED[0]][2]:.4f} ms)")
     def launched(name):
         return sum(run[name] for run in (main_launches, trial_launches, flagship_launches,
-                                         flagship_trial_launches))
+                                         flagship_trial_launches, cheb_launches, cheb_trial_launches,
+                                         unw_launches, iir_launches))
 
-    for name in ("bandcov_grams", "logcov_feats"):
-        g = logcov_times[1024][name]
-        phase(f"{name} at B=1024: kernel {g[0]:.4f} ms, plain {g[1]:.4f} ms, bound {g[2]:.4f} ms"
+    logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
+                              iir_cascade=iir_times[TIMED[0]])
+    logcov_times[TIMED[-1]].update(logcov_feats_chebyshev=cheb_times[TIMED[-1]], logm_clenshaw=logm_times[TIMED[-1]],
+                               iir_cascade=iir_times[TIMED[-1]])
+    for name, g in logcov_times[TIMED[0]].items():
+        phase(f"{name} at B={TIMED[0]}: kernel {g[0]:.4f} ms, plain {g[1]:.4f} ms, bound {g[2]:.4f} ms"
               + ("" if g[4] is None else f", library {g[4]:.4f} ms"))
     report = {
         "kernels": [
@@ -501,15 +843,21 @@ def main() -> int:
     # that window's max|G|, the quantity its limit bounds; that of
     # logcov_feats is the plain largest |kernel - twin| (its limit is on
     # the same difference over each window's max(scale, 1))
+    # logcov_feats_chebyshev, logm_clenshaw and iir_cascade report the
+    # plain largest |kernel - twin|; logm_clenshaw's library_ms is the
+    # eigh route (the exact log), the only PyTorch yardstick of a matrix log
     for name, replaces, err in (
         ("bandcov_grams", "neural_speech_decoding_tpu/ops/pallas/bandcov.py:35", gram_err),
         ("logcov_feats", "neural_speech_decoding_tpu/ops/pallas/logmfeats.py:63", feat_err),
+        ("logcov_feats_chebyshev", "neural_speech_decoding_tpu/ops/pallas/logmfeats.py:239", cheb_err),
+        ("logm_clenshaw", "neural_speech_decoding_tpu/ops/pallas/logm.py:39", logm_err),
+        ("iir_cascade", "neural_speech_decoding_tpu/ops/pallas/iir.py:38", iir_err),
     ):
-        ms, plain_ms, bound_ms, bound_by, library_ms = logcov_times[16384][name]
+        ms, plain_ms, bound_ms, bound_by, library_ms = logcov_times[TIMED[-1]][name]
         report["kernels"].append({
             "name": name,
             "route": "cuda",
-            "source": f"neural_speech_decoding_tpu_torch/csrc/{name}.cu",
+            "source": f"neural_speech_decoding_tpu_torch/csrc/{kernels.SOURCES[name]}.cu",
             "replaces": replaces,
             "launches": launched(name),
             "max_abs_err": err,

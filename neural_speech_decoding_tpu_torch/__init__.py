@@ -2,13 +2,16 @@
 
 Module names mirror `neural_speech_decoding_tpu` (the JAX package, which
 stays the reference the port's tests hold it against). This package
-imports torch, numpy and the standard library only.
+imports torch, numpy and the standard library only (and scipy, inside
+ops/iir.butter_sos, for the Butterworth design).
 
   config.py      frozen dataclass configs (filter / decoder / pipeline)
   io/            .npz and .pth parameter loading, JAX-pytree conversion
   ops/           Hilbert operator, MAI (Kuramoto) filter, LSTM gate math,
-                 8x8 SPD algebra (spd.py), kernels/ hand-written CUDA
-                 kernels with their plain twins
+                 8x8 SPD algebra (spd.py), Butterworth design (iir.py),
+                 kernels/ hand-written CUDA kernels with their plain twins
+                 (pair sums, band grams, logcov features, Clenshaw matrix
+                 log, zero-phase IIR cascade)
   models/        LSTM decoder and log-covariance family (eval paths), the
                  registry of families
   runtime/       boards, connector, streaming producer, InferenceEngine,
@@ -16,7 +19,7 @@ imports torch, numpy and the standard library only.
   utils/         device selection, latency metrics
 
 Entry points (`InferenceEngine`, `EnsembleEngine`, `mai_filter_batch`,
-`run_trials`) run on CUDA unless the caller passes `device="cpu"`;
+`fused_preprocess`, `run_trials`) run on CUDA unless the caller passes `device="cpu"`;
 without CUDA they raise.
 """
 

@@ -1,10 +1,12 @@
-// Fused whitened log-covariance features (rational matrix log) for NVIDIA
-// Hopper (sm_90a).
+// Fused whitened log-covariance features (rational or Chebyshev matrix
+// log) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   neural_speech_decoding_tpu/ops/pallas/logmfeats.py:63 _fused_kernel
 //   (grid call _fused_batched:320, wrapper
-//   fused_whitened_logcov_feature_rows:344), in its logm="rational" mode.
+//   fused_whitened_logcov_feature_rows:344) in both its modes:
+//   logm="rational" (logcov_feats_kernel below) and logm="chebyshev"
+//   (:239-275, logcov_feats_cheb_kernel below).
 // Python wrapper and plain twin:
 //   neural_speech_decoding_tpu_torch/ops/kernels/logmfeats.py
 //
@@ -27,6 +29,20 @@
 // rounded operations (__fmul_rn and the like, never contracted into an
 // FMA) in the order of the plain twin, so the guard decides exactly as the
 // twin does; step 3 lets the compiler form FMAs.
+//
+// Chebyshev mode: steps 1, 2 and 4 are the same code; step 3 builds, as the
+// JAX kernel does, a_ij = s_ij * (1 / (tr / C)), t_ii = (2 a_ii - (hi + lo))
+// / (hi - lo), t_ij = 2 a_ij / (hi - lo), and runs the matrix Clenshaw
+// recurrence over the degree + 1 coefficients in device memory
+// (clenshaw_sym8.cuh): out = c_0 I + t b_1 - b_2. One thread owns one
+// matrix there (the upper triangles of t, b1 and b2 in registers), since
+// every step needs every entry of b1; the 8-lanes-a-matrix layout of the
+// rational mode would broadcast all of b1 at each of the 320 steps.
+// Bound (B = 16384, degree 320): the same 38.4 MB, 0.0115 ms; the least
+// work is an eigendecomposition (about 9 C^3), the scalar series at C
+// eigenvalues (3 d C), V f(L) V^T (2 C^3) and the guard, about 13.7 kFLOP
+// a matrix, 1.8 GFLOP, 0.027 ms: bound by operations. The recurrence
+// itself does 184 kFLOP a matrix.
 //
 // Bound on this card (logcov8, B = 16384, 131072 matrices): bytes are the
 // gram pairs read once and the features written once, 18.9 MB each, plus
@@ -57,32 +73,47 @@
 
 #include <cuda_runtime.h>
 
+#include "clenshaw_sym8.cuh"
+
 namespace {
 
 constexpr int kC = 8;                       // channels (the wrapper checks)
 constexpr int kPairs = kC * (kC + 1) / 2;   // 36
 constexpr int kMaxTerms = 32;               // resolvent poles
-constexpr int kThreads = 128;               // 16 matrices of 8 lanes
+constexpr int kMaxDegree = 4096;            // Chebyshev degree
+constexpr int kThreads = 128;               // 16 matrices of 8 lanes (rational)
+constexpr int kChebThreads = 128;           // 128 matrices (Chebyshev)
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kSqrt2 = static_cast<float>(1.4142135623730951);  // float32 sqrt(2)
 
-struct Params {
+struct GuardParams {
   float scale;            // 2 / T^2
   float alpha;            // shrinkage a
   float one_minus_alpha;  // 1 - a, rounded from float64 as the twin does
   float lo, hi;           // spectrum domain
   float guard_g;          // guard shrinkage g
   float one_minus_g;      // 1 - g
+  int mirror;             // 1 when hi < C: test the upper edge too
+};
+
+struct Params {
+  GuardParams guard;
   float c0;               // resolvent constant
   int terms;              // number of poles
-  int mirror;             // 1 when hi < C: test the upper edge too
   float poles[kMaxTerms];
   float weights[kMaxTerms];
 };
 
+struct ChebParams {
+  GuardParams guard;
+  float hi_plus_lo;       // float32(hi + lo), as the JAX kernel's constant
+  float hi_minus_lo;      // float32(hi - lo)
+  int degree;
+};
+
 __host__ __device__ constexpr int pidx(int i, int j) {
   // (i, j), i <= j -> row-major upper-triangle index
-  return i * kC - i * (i - 1) / 2 + (j - i);
+  return nsd::sym_pidx(i, j);
 }
 
 // Cholesky PD test of the symmetric matrix e(i, j) (Sylvester's criterion,
@@ -109,30 +140,19 @@ __device__ __forceinline__ bool pd_ok(Entry e) {
   return ok;
 }
 
-__global__ void __launch_bounds__(kThreads)
-logcov_feats_kernel(const float* __restrict__ grams, const float* __restrict__ tr_scaled,
-                    const float* __restrict__ wwt, float* __restrict__ feats,
-                    unsigned char* __restrict__ flags, long long matrices, int nb,
-                    Params prm) {
-  const int row = threadIdx.x & 7;
-  const long long mat = static_cast<long long>(blockIdx.x) * (kThreads / 8) + (threadIdx.x >> 3);
-  // Every lane takes part in the shuffles; a group past the end computes
-  // on the last matrix and writes nothing.
-  const bool active = mat < matrices;
-  const long long m_idx = active ? mat : matrices - 1;
-  const int band = static_cast<int>(m_idx % nb);
-  const float* g = grams + m_idx * kPairs;
-  const float* w = wwt + band * kPairs;
-
+// Steps 1 and 2 of one matrix: s (its upper triangle) and trace out,
+// returns false where the guard fired (s is then the shrunk matrix).
+__device__ __forceinline__ bool shrink_and_guard(const float* __restrict__ g, float tr_scaled,
+                                                 const float* __restrict__ w, const GuardParams& prm,
+                                                 float (&s)[kPairs], float& trace) {
   // 1. shrinkage combine: scale first, then the convex mix
-  const float shr = __fmul_rn(prm.alpha, __fadd_rn(__fdiv_rn(__ldg(tr_scaled + m_idx), 8.0f), 1e-12f));
-  float s[kPairs];
+  const float shr = __fmul_rn(prm.alpha, __fadd_rn(__fdiv_rn(tr_scaled, 8.0f), 1e-12f));
 #pragma unroll
   for (int p = 0; p < kPairs; ++p) {
     s[p] = __fadd_rn(__fmul_rn(prm.one_minus_alpha, __fmul_rn(__ldg(g + p), prm.scale)),
                      __fmul_rn(shr, __ldg(w + p)));
   }
-  float trace = s[pidx(0, 0)];
+  trace = s[pidx(0, 0)];
 #pragma unroll
   for (int i = 1; i < kC; ++i) trace = __fadd_rn(trace, s[pidx(i, i)]);
 
@@ -162,6 +182,27 @@ logcov_feats_kernel(const float* __restrict__ grams, const float* __restrict__ t
 #pragma unroll
     for (int i = 1; i < kC; ++i) trace = __fadd_rn(trace, s[pidx(i, i)]);
   }
+  return ok;
+}
+
+__global__ void __launch_bounds__(kThreads)
+logcov_feats_kernel(const float* __restrict__ grams, const float* __restrict__ tr_scaled,
+                    const float* __restrict__ wwt, float* __restrict__ feats,
+                    unsigned char* __restrict__ flags, long long matrices, int nb,
+                    Params prm) {
+  const int row = threadIdx.x & 7;
+  const long long mat = static_cast<long long>(blockIdx.x) * (kThreads / 8) + (threadIdx.x >> 3);
+  // Every lane takes part in the shuffles; a group past the end computes
+  // on the last matrix and writes nothing.
+  const bool active = mat < matrices;
+  const long long m_idx = active ? mat : matrices - 1;
+  const int band = static_cast<int>(m_idx % nb);
+
+  // 1-2. shrinkage and guard, redundantly in every lane of the matrix
+  float s[kPairs];
+  float trace;
+  const bool ok = shrink_and_guard(grams + m_idx * kPairs, __ldg(tr_scaled + m_idx),
+                                   wwt + band * kPairs, prm.guard, s, trace);
   if (active && row == 0) flags[m_idx] = ok ? 0 : 1;
 
   // 3. trace-normalised rational matrix log; this lane owns row `row`
@@ -221,11 +262,70 @@ logcov_feats_kernel(const float* __restrict__ grams, const float* __restrict__ t
   }
 }
 
+__global__ void __launch_bounds__(kChebThreads)
+logcov_feats_cheb_kernel(const float* __restrict__ grams, const float* __restrict__ tr_scaled,
+                         const float* __restrict__ wwt, float* __restrict__ feats,
+                         unsigned char* __restrict__ flags, long long matrices, int nb,
+                         ChebParams prm, const float* __restrict__ coeffs) {
+  const long long m = static_cast<long long>(blockIdx.x) * kChebThreads + threadIdx.x;
+  if (m >= matrices) return;
+  const int band = static_cast<int>(m % nb);
+
+  // 1-2. shrinkage and guard, the rational mode's code
+  float s[kPairs];
+  float trace;
+  const bool ok = shrink_and_guard(grams + m * kPairs, __ldg(tr_scaled + m), wwt + band * kPairs,
+                                   prm.guard, s, trace);
+  flags[m] = ok ? 0 : 1;
+
+  // 3. trace-normalised, mapped onto the Chebyshev domain, Clenshaw
+  const float tr2 = __fdiv_rn(trace, static_cast<float>(kC));
+  const float inv_tr = __fdiv_rn(1.0f, tr2);
+  float t[kPairs];
+#pragma unroll
+  for (int i = 0; i < kC; ++i) {
+#pragma unroll
+    for (int j = i; j < kC; ++j) {
+      const float a2 = 2.0f * (s[pidx(i, j)] * inv_tr);
+      t[pidx(i, j)] = (i == j ? a2 - prm.hi_plus_lo : a2) / prm.hi_minus_lo;
+    }
+  }
+  float out[kPairs];
+  nsd::clenshaw_sym8(t, coeffs, prm.degree, out);
+
+  // 4. log(tr/C) on the diagonal, sqrt(2) off it
+  const float logtr = logf(tr2);
+  float* f = feats + m * kPairs;
+#pragma unroll
+  for (int i = 0; i < kC; ++i) {
+#pragma unroll
+    for (int j = i; j < kC; ++j) {
+      const int p = pidx(i, j);
+      f[p] = i == j ? out[p] + logtr : out[p] * kSqrt2;
+    }
+  }
+}
+
+GuardParams guard_params(double scale, double alpha, double lo, double hi, double guard_g) {
+  GuardParams g;
+  g.scale = static_cast<float>(scale);
+  g.alpha = static_cast<float>(alpha);
+  g.one_minus_alpha = static_cast<float>(1.0 - alpha);
+  g.lo = static_cast<float>(lo);
+  g.hi = static_cast<float>(hi);
+  g.guard_g = static_cast<float>(guard_g);
+  g.one_minus_g = static_cast<float>(1.0 - guard_g);
+  g.mirror = hi < kC ? 1 : 0;
+  return g;
+}
+
 }  // namespace
 
 extern "C" {
 
 int nsd_logcov_feats_max_terms() { return kMaxTerms; }
+
+int nsd_logcov_feats_max_degree() { return kMaxDegree; }
 
 // grams [batch, nb * 36], tr_scaled [batch, nb], wwt [nb, 36] float32,
 // contiguous; feats [batch, nb * 36] float32 and flags [batch, nb] uint8
@@ -238,16 +338,9 @@ int nsd_logcov_feats(const float* grams, const float* tr_scaled, const float* ww
   if (batch <= 0) return 0;
   if (nb < 1 || terms < 1 || terms > kMaxTerms) return static_cast<int>(cudaErrorInvalidValue);
   Params prm;
-  prm.scale = static_cast<float>(scale);
-  prm.alpha = static_cast<float>(alpha);
-  prm.one_minus_alpha = static_cast<float>(1.0 - alpha);
-  prm.lo = static_cast<float>(lo);
-  prm.hi = static_cast<float>(hi);
-  prm.guard_g = static_cast<float>(guard_g);
-  prm.one_minus_g = static_cast<float>(1.0 - guard_g);
+  prm.guard = guard_params(scale, alpha, lo, hi, guard_g);
   prm.c0 = static_cast<float>(coeffs[0]);
   prm.terms = terms;
-  prm.mirror = hi < kC ? 1 : 0;
   for (int t = 0; t < kMaxTerms; ++t) {
     prm.poles[t] = t < terms ? static_cast<float>(coeffs[1 + t]) : 0.0f;
     prm.weights[t] = t < terms ? static_cast<float>(coeffs[1 + terms + t]) : 0.0f;
@@ -258,6 +351,28 @@ int nsd_logcov_feats(const float* grams, const float* tr_scaled, const float* ww
   logcov_feats_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       grams, tr_scaled, wwt, feats, flags, matrices, nb, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Chebyshev mode: the same arrays; coeffs [degree + 1] float32 in device
+// memory (c_0..c_degree of log on [lo, hi]).
+int nsd_logcov_feats_chebyshev(const float* grams, const float* tr_scaled, const float* wwt,
+                               float* feats, unsigned char* flags, int batch, int nb,
+                               const float* coeffs, int degree, double scale, double alpha,
+                               double lo, double hi, double guard_g, void* stream) {
+  if (batch <= 0) return 0;
+  if (nb < 1 || degree < 0 || degree > kMaxDegree) return static_cast<int>(cudaErrorInvalidValue);
+  ChebParams prm;
+  prm.guard = guard_params(scale, alpha, lo, hi, guard_g);
+  prm.hi_plus_lo = static_cast<float>(hi + lo);
+  prm.hi_minus_lo = static_cast<float>(hi - lo);
+  prm.degree = degree;
+  const long long matrices = static_cast<long long>(batch) * nb;
+  const long long blocks = (matrices + kChebThreads - 1) / kChebThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  logcov_feats_cheb_kernel<<<static_cast<unsigned>(blocks), kChebThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      grams, tr_scaled, wwt, feats, flags, matrices, nb, prm, coeffs);
   return static_cast<int>(cudaGetLastError());
 }
 

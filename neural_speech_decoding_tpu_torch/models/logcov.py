@@ -12,20 +12,26 @@ Counterpart of neural_speech_decoding_tpu/models/logcov.py. Per window:
   -> spectrum guard: a Cholesky (Sylvester) test of S/tr - lo I flags the
      bands whose trace-normalised spectrum leaves [lo, hi] and shrinks only
      those back into it
-  -> trace-normalised matrix log as a 12-pole resolvent sum
-     c0 I + sum_j v_j (A - p_j I)^{-1} by pivot-free Gauss-Jordan
+  -> trace-normalised matrix log A = S / (tr/C): logm="rational", a 12-pole
+     resolvent sum c0 I + sum_j v_j (A - p_j I)^{-1} by pivot-free
+     Gauss-Jordan; logm="chebyshev" (and "chebyshev_scan"), the degree-320
+     Chebyshev series of log on [lo, hi] by the matrix Clenshaw recurrence;
+     logm="eigh", the eigendecomposition
   -> log(tr/C) on the diagonal, upper triangle row-major with off-diagonals
      weighted by sqrt(2): feature index k * 36 + p
   -> LayerNorm (biased variance) -> linear head.
 
-With a whitener, `logcov_features` takes the kernel route: the gram kernel
-(ops/kernels/bandcov.py), then the feature kernel (ops/kernels/
-logmfeats.py), as the JAX package takes its fused Pallas route on the TPU.
-Each wrapper launches its CUDA kernel for a CUDA tensor and takes its plain
-twin for a CPU tensor. Only fused="stages" or guard_domain=False take the
-stages path below, whose grams still go through the gram kernel. Only the
-eval path is here: the Chebyshev and eigh matrix logs, the FFT spectral
-method, `fit_whitener` and training are still to port (ROADMAP.md).
+`logcov_features` dispatches as the JAX package does on the TPU. With a
+whitener, spectral="matmul", fused="kernel", the guard on and a rational or
+Chebyshev log it takes the kernel route: the gram kernel (ops/kernels/
+bandcov.py), then the feature kernel (ops/kernels/logmfeats.py) in the
+matching mode. Everything else takes the stages path below, whose grams
+(matmul spectral method with a whitener) still go through the gram kernel
+and whose logm="chebyshev" goes through the Clenshaw kernel (ops/kernels/
+logm.py). Each wrapper launches its CUDA kernel for a CUDA tensor and takes
+its plain twin for a CPU tensor. logm="chebyshev_scan" is the plain Clenshaw
+recurrence on every device, as in JAX. Only the eval path is here:
+`fit_whitener` and training are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 
 from neural_speech_decoding_tpu_torch.ops import spd
 from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams
+from neural_speech_decoding_tpu_torch.ops.kernels.logm import logm_spd_chebyshev
 from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats
 
 Params = Dict[str, Any]
@@ -46,9 +53,10 @@ Params = Dict[str, Any]
 
 @dataclasses.dataclass(frozen=True)
 class LogCovConfig:
-    """Fields and defaults of the JAX LogCovConfig (models/logcov.py:38-135).
-    The port serves spectral="matmul" with logm="rational"; the other
-    backends raise NotImplementedError when used."""
+    """Fields and defaults of the JAX LogCovConfig (models/logcov.py:38-135):
+    spectral "matmul" or "fft"; logm "rational", "chebyshev",
+    "chebyshev_scan" or "eigh". An unknown backend raises ValueError when
+    used, as in JAX."""
 
     num_channels: int = 8
     num_classes: int = 3
@@ -84,19 +92,6 @@ class LogCovConfig:
 def _num_features(cfg: LogCovConfig) -> int:
     c = cfg.num_channels
     return len(cfg.bands) * (c * (c + 1)) // 2
-
-
-def _check_supported(cfg: LogCovConfig) -> None:
-    if cfg.spectral != "matmul":
-        raise NotImplementedError(
-            f"spectral={cfg.spectral!r} is not ported yet (ROADMAP.md: "
-            "spectral='fft'); use spectral='matmul'"
-        )
-    if cfg.logm != "rational":
-        raise NotImplementedError(
-            f"logm={cfg.logm!r} is not ported yet (ROADMAP.md: the Chebyshev "
-            "mode with logm._clenshaw_kernel); use logm='rational'"
-        )
 
 
 @functools.lru_cache(maxsize=8)
@@ -141,18 +136,49 @@ def _rational_log_coeffs(
     )
 
 
+@functools.lru_cache(maxsize=8)
+def _cheb_log_coeffs(lo: float, hi: float, degree: int) -> Tuple[float, ...]:
+    """float64 Chebyshev coefficients of log on [lo, hi] (numpy convention:
+    f = sum c_k T_k, c_0 unhalved); the JAX package's fit, bit for bit."""
+    cheb = np.polynomial.chebyshev.Chebyshev.interpolate(np.log, degree, domain=[lo, hi])
+    return tuple(float(c) for c in cheb.coef)
+
+
+def _fft_band_covariances(x: torch.Tensor, cfg: LogCovConfig) -> list:
+    """Per-band covariances from the real FFT by Parseval (JAX
+    models/logcov.py:218-229): the band-masked spectrum against the whole
+    one, real part, times 2/T^2 (rfft halves the spectrum; the DC bin is
+    masked by lo >= 3 Hz and odd T has no Nyquist bin). The bin
+    frequencies are float32 k / (T d), as jnp.fft.rfftfreq makes them."""
+    t = x.shape[1]
+    xf = torch.fft.rfft(x, dim=1)  # [B, F, C] complex
+    k = torch.arange(t // 2 + 1, dtype=torch.float32, device=x.device)
+    freqs = k / torch.tensor((1.0 / cfg.sample_rate) * t, dtype=torch.float32, device=x.device)
+    re, im = xf.real, xf.imag
+    covs = []
+    for lo, hi in cfg.bands:
+        m = ((freqs >= lo) & (freqs < hi)).to(torch.float32)[None, :, None]
+        s = torch.matmul((re * m).transpose(1, 2), re) + torch.matmul((im * m).transpose(1, 2), im)
+        covs.append(s * (2.0 / (t * t)))
+    return covs
+
+
 def band_covariances(x_btc: torch.Tensor, cfg: LogCovConfig) -> torch.Tensor:
     """[B, T, C] -> shrunk per-band spatial covariances [B, nb, C, C]
-    (matmul spectral method, JAX models/logcov.py:200-237)."""
-    _check_supported(cfg)
+    (JAX models/logcov.py:200-237)."""
     t = x_btc.shape[1]
     x = x_btc - x_btc.mean(dim=1, keepdim=True)
-    _, slices = _band_projector(t, cfg)
-    y = torch.matmul(_projector_on(t, cfg, x.device), x)  # [B, R, C]
-    covs = [
-        torch.matmul(y[:, sl].transpose(1, 2), y[:, sl]) * (2.0 / (t * t))
-        for sl in slices
-    ]
+    if cfg.spectral == "matmul":
+        _, slices = _band_projector(t, cfg)
+        y = torch.matmul(_projector_on(t, cfg, x.device), x)  # [B, R, C]
+        covs = [
+            torch.matmul(y[:, sl].transpose(1, 2), y[:, sl]) * (2.0 / (t * t))
+            for sl in slices
+        ]
+    elif cfg.spectral == "fft":
+        covs = _fft_band_covariances(x, cfg)
+    else:
+        raise ValueError(f"unknown spectral method {cfg.spectral!r}")
     s = torch.stack(covs, dim=1)
     s = 0.5 * (s + s.transpose(-1, -2))
     c = cfg.num_channels
@@ -173,6 +199,23 @@ def _guard_strength(cfg: LogCovConfig) -> float:
 def _logm_spd_rational(s: torch.Tensor, cfg: LogCovConfig) -> torch.Tensor:
     lo, hi = cfg.cheb_interval
     return spd.logm_rational(s, *_rational_log_coeffs(lo, hi, cfg.logm_terms))
+
+
+def _logm_spd(s: torch.Tensor, cfg: LogCovConfig) -> torch.Tensor:
+    """The stages path's matrix log of [B, nb, C, C] (JAX models/logcov.py:
+    672-692). logm="chebyshev" goes through the Clenshaw kernel's wrapper
+    (the kernel on CUDA, where JAX takes its Pallas kernel on the TPU; the
+    twin on the CPU); "chebyshev_scan" is the plain recurrence everywhere."""
+    lo, hi = cfg.cheb_interval
+    if cfg.logm == "chebyshev":
+        return logm_spd_chebyshev(s, _cheb_log_coeffs(lo, hi, cfg.cheb_degree), lo, hi)
+    if cfg.logm == "chebyshev_scan":
+        return spd.logm_chebyshev(s, _cheb_log_coeffs(lo, hi, cfg.cheb_degree), lo, hi)
+    if cfg.logm == "rational":
+        return _logm_spd_rational(s, cfg)
+    if cfg.logm == "eigh":
+        return spd.logm_eigh(s)
+    raise ValueError(f"unknown logm backend {cfg.logm!r}")
 
 
 def domain_flags(s: torch.Tensor, cfg: LogCovConfig) -> torch.Tensor:
@@ -239,26 +282,32 @@ class KernelInputs(NamedTuple):
     offsets: Tuple[int, ...]  # nb + 1 band row offsets
     tr_scaled: torch.Tensor  # [B, nb] per-band tr(G) 2/T^2
     wwt_pairs: torch.Tensor  # [nb, P] upper-triangle pairs of W_k W_k^T
-    coeffs: Tuple[float, ...]  # c0, poles, weights of the rational log
-    scalars: Dict[str, float]  # scale, alpha, lo, hi, guard_g
+    coeffs: Tuple[float, ...]  # rational: c0, poles, weights; chebyshev: c_0..c_degree
+    scalars: Dict[str, Any]  # the feature kernel's keywords: scale, alpha, lo, hi, guard_g, logm
 
 
 def kernel_inputs(x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig) -> KernelInputs:
     """The prefix of the kernel route (JAX _fused_kernel_forward,
     models/logcov.py:507-556): project, fold the whitener, traces and
-    W W^T pairs, all plain PyTorch."""
-    _check_supported(cfg)
+    W W^T pairs, all plain PyTorch, and the coefficients of the log."""
     yw, y, slices, t = _project_and_fold_whitener(x_btc, cfg, w0)
     iu, ju = torch.triu_indices(cfg.num_channels, cfg.num_channels, device=w0.device)
     lo, hi = cfg.cheb_interval
-    c0, poles, weights = _rational_log_coeffs(lo, hi, cfg.logm_terms)
+    if cfg.logm == "rational":
+        c0, poles, weights = _rational_log_coeffs(lo, hi, cfg.logm_terms)
+        coeffs = (c0,) + poles + weights
+    else:
+        coeffs = _cheb_log_coeffs(lo, hi, cfg.cheb_degree)
     return KernelInputs(
         yw=yw.contiguous(),
         offsets=_band_offsets(slices),
         tr_scaled=_band_traces_scaled(y, slices, t).T.contiguous(),
         wwt_pairs=_wwt(w0)[:, iu, ju].contiguous(),
-        coeffs=(c0,) + poles + weights,
-        scalars=dict(scale=2.0 / (t * t), alpha=cfg.shrinkage, lo=lo, hi=hi, guard_g=_guard_strength(cfg)),
+        coeffs=coeffs,
+        scalars=dict(
+            scale=2.0 / (t * t), alpha=cfg.shrinkage, lo=lo, hi=hi,
+            guard_g=_guard_strength(cfg), logm=cfg.logm,
+        ),
     )
 
 
@@ -266,9 +315,9 @@ def _fused_kernel_feats(
     x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel route: band-gram pair rows [B, nb*36] from the gram
-    kernel, then shrinkage, guard, rational logm and triu features in the
-    feature kernel. Returns (feats [B, nb*36], flags [B] bool). On a CPU
-    tensor the two wrappers take their plain twins."""
+    kernel, then shrinkage, guard, rational or Chebyshev logm and triu
+    features in the feature kernel. Returns (feats [B, nb*36], flags [B]
+    bool). On a CPU tensor the two wrappers take their plain twins."""
     k = kernel_inputs(x_btc, w0, cfg)
     grams = band_grams(k.yw, k.offsets)
     feats, band_flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
@@ -283,22 +332,28 @@ def logcov_features(
     with_flags: bool = False,
 ):
     """[B, T, C] -> tangent-space features [B, n_features] (and, with
-    `with_flags`, the per-window guard flags [B] bool)."""
-    _check_supported(cfg)
+    `with_flags`, the per-window guard flags [B] bool). Dispatch as JAX
+    models/logcov.py:615-700 does on the TPU."""
     x = x_btc.to(torch.float32)
-    if whitener is not None:
+    if whitener is not None and cfg.spectral == "matmul":
         w0 = whitener.to(device=x.device, dtype=torch.float32)
-        if cfg.fused == "kernel" and cfg.guard_domain:
+        if cfg.fused == "kernel" and cfg.logm in ("chebyshev", "rational") and cfg.guard_domain:
             feats, flags = _fused_kernel_feats(x, w0, cfg)
             return (feats, flags) if with_flags else feats
         s = _whitened_band_covariances_fused(x, cfg, w0)
+    elif whitener is not None:
+        w0 = whitener.to(device=x.device, dtype=torch.float32)
+        s = torch.matmul(torch.matmul(w0, band_covariances(x, cfg)), w0)  # W S W per band
+        s = 0.5 * (s + s.transpose(-1, -2))
     else:
         s = band_covariances(x, cfg)
     # The shrinkage floor guarantees the domain for unwhitened covariances
-    # under the default interval; whitening, or hi < C, does not.
+    # under the default interval; whitening, or hi < C, does not. Only the
+    # polynomial logs extrapolate; eigh degrades boundedly on its own.
     flags = None
+    polynomial = cfg.logm in ("chebyshev", "chebyshev_scan", "rational")
     at_risk = whitener is not None or cfg.cheb_interval[1] < cfg.num_channels
-    if cfg.guard_domain and at_risk:
+    if cfg.guard_domain and polynomial and at_risk:
         s, band_flags = guard_spectrum(s, cfg)
         flags = band_flags.any(dim=-1)
     elif with_flags:
@@ -307,7 +362,7 @@ def logcov_features(
             if at_risk
             else torch.zeros(s.shape[0], dtype=torch.bool, device=s.device)
         )
-    feats = spd.triu_features(_logm_spd_rational(s, cfg))
+    feats = spd.triu_features(_logm_spd(s, cfg))
     if with_flags:
         return feats, flags
     return feats

@@ -10,7 +10,16 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"kuramoto_pair_sums": 0, "bandcov_grams": 0, "logcov_feats": 0}
+# launch counter -> the source csrc/<source>.cu that holds its kernel
+SOURCES: Dict[str, str] = {
+    "kuramoto_pair_sums": "kuramoto_pair_sums",
+    "bandcov_grams": "bandcov_grams",
+    "logcov_feats": "logcov_feats",
+    "logcov_feats_chebyshev": "logcov_feats",
+    "logm_clenshaw": "logm_clenshaw",
+    "iir_cascade": "iir_cascade",
+}
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
 _lock = threading.Lock()
 
 

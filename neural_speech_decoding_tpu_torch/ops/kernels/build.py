@@ -3,9 +3,9 @@
 Each source csrc/<name>.cu is compiled by plain nvcc into
 build/nsd_torch_kernels/lib<name>-<hash>.so at the root of the checkout
 and loaded with ctypes. The sources expose C functions and include no
-PyTorch header, so a build takes seconds. The hash covers the source and
-the flags: an edited source gets a new library, and a stale one is never
-loaded. Nothing is built when a module is imported; a wrapper builds its
+PyTorch header, so a build takes seconds. The hash covers the source, the
+shared headers csrc/*.cuh and the flags: an edited source or header gets a
+new library, and a stale one is never loaded. Nothing is built when a module is imported; a wrapper builds its
 library at its first launch.
 """
 
@@ -49,7 +49,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

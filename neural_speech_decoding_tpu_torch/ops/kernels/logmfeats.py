@@ -1,16 +1,18 @@
-"""Fused whitened log-covariance features (rational matrix log): CUDA
-kernel and plain twin.
+"""Fused whitened log-covariance features (rational or Chebyshev matrix
+log): CUDA kernel and plain twin.
 
 Replaces the Pallas TPU kernel neural_speech_decoding_tpu/ops/pallas/
 logmfeats.py:63 (_fused_kernel, grid call _fused_batched:320, wrapper
-fused_whitened_logcov_feature_rows:344) in its logm="rational" mode. From
-the band-gram pairs of ops/kernels/bandcov.py it computes, per window and
-band: the shrinkage combine, the spectrum guard (flags where it fires), the
-trace-normalised 12-pole resolvent matrix log and the sqrt(2)-weighted
-upper-triangle features. The kernel (csrc/logcov_feats.cu, plain nvcc,
-ctypes) runs for a CUDA tensor; the plain twin, the stages arithmetic of
-ops/spd.py on the same inputs, for a CPU tensor and as the kernel's test
-oracle on the card. The Chebyshev mode is still to port (ROADMAP.md).
+fused_whitened_logcov_feature_rows:344) in both its modes. From the
+band-gram pairs of ops/kernels/bandcov.py it computes, per window and band:
+the shrinkage combine, the spectrum guard (flags where it fires), the
+trace-normalised matrix log (logm="rational": the 12-pole resolvent sum;
+logm="chebyshev": the Chebyshev series by the Clenshaw recurrence, :239-275)
+and the sqrt(2)-weighted upper-triangle features. The kernel
+(csrc/logcov_feats.cu, plain nvcc, ctypes) runs for a CUDA tensor, its two
+modes counted apart (logcov_feats, logcov_feats_chebyshev); the plain twin,
+the stages arithmetic of ops/spd.py on the same inputs, for a CPU tensor
+and as the kernel's test oracle on the card.
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ import torch
 
 from neural_speech_decoding_tpu_torch.ops import kernels, spd
 from neural_speech_decoding_tpu_torch.ops.kernels import build
+from neural_speech_decoding_tpu_torch.ops.kernels.logm import device_coeffs
 
 NAME = "logcov_feats"
+CHEB_NAME = "logcov_feats_chebyshev"
+MODES = ("rational", "chebyshev")
 CHANNELS = 8
 PAIRS = CHANNELS * (CHANNELS + 1) // 2
 
@@ -48,16 +53,25 @@ def logcov_feats_plain(
     lo: float,
     hi: float,
     guard_g: float,
+    logm: str = "rational",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version on [..., 8, 8] matrices: shrink, guard,
-    rational logm, weighted triu. Any float dtype: in float64 it is the
-    kernel's accuracy reference."""
+    rational or Chebyshev logm, weighted triu. Any float dtype: in float64
+    it is the kernel's accuracy reference."""
+    _check_mode(logm)
     b, nb = tr_scaled.shape
     g = spd.pairs_to_matrix(grams.reshape(b, nb, PAIRS), CHANNELS)
     w = spd.pairs_to_matrix(wwt_pairs, CHANNELS)
     s = (1.0 - alpha) * (g * scale) + alpha * (tr_scaled[..., None, None] / CHANNELS + 1e-12) * w
     s, flags = spd.guard_spectrum(s, lo, hi, guard_g)
+    if logm == "chebyshev":
+        return spd.triu_features(spd.logm_chebyshev(s, coeffs, lo, hi)), flags
     return spd.triu_features(spd.logm_rational(s, *_split_coeffs(coeffs))), flags
+
+
+def _check_mode(logm: str) -> None:
+    if logm not in MODES:
+        raise ValueError(f"unknown feature kernel mode {logm!r}; expected one of {MODES}")
 
 
 @functools.cache
@@ -72,6 +86,15 @@ def _library() -> ctypes.CDLL:
     lib.nsd_logcov_feats.restype = ctypes.c_int
     lib.nsd_logcov_feats_max_terms.argtypes = []
     lib.nsd_logcov_feats_max_terms.restype = ctypes.c_int
+    lib.nsd_logcov_feats_chebyshev.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+        ctypes.c_void_p,
+    ]
+    lib.nsd_logcov_feats_chebyshev.restype = ctypes.c_int
+    lib.nsd_logcov_feats_max_degree.argtypes = []
+    lib.nsd_logcov_feats_max_degree.restype = ctypes.c_int
     lib.nsd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nsd_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -106,23 +129,31 @@ def logcov_feats(
     lo: float,
     hi: float,
     guard_g: float,
+    logm: str = "rational",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Band-gram pairs [B, nb*36] (unscaled), per-band tr(G) 2/T^2 [B, nb],
-    W W^T pairs [nb, 36], the resolvent coefficients (c0, poles, weights)
-    -> (feats [B, nb*36] float32, flags [B, nb] bool). Launches the CUDA
-    kernel for a CUDA tensor (and counts the launch); takes the plain twin
-    for a CPU tensor."""
+    W W^T pairs [nb, 36] and the coefficients of the log (logm="rational":
+    c0, poles, weights; logm="chebyshev": c_0..c_degree on [lo, hi]) ->
+    (feats [B, nb*36] float32, flags [B, nb] bool). Launches the CUDA
+    kernel in that mode for a CUDA tensor (and counts the launch under the
+    mode's name); takes the plain twin for a CPU tensor."""
     _check(grams, tr_scaled, wwt_pairs)
-    c0, poles, weights = _split_coeffs(coeffs)
+    _check_mode(logm)
     kw = dict(scale=scale, alpha=alpha, lo=lo, hi=hi, guard_g=guard_g)
+    if logm == "rational":
+        c0, poles, weights = _split_coeffs(coeffs)
+    elif len(coeffs) < 1:
+        raise ValueError("expected at least one Chebyshev coefficient")
     if grams.device.type == "cpu":
-        return logcov_feats_plain(grams, tr_scaled, wwt_pairs, coeffs, **kw)
+        return logcov_feats_plain(grams, tr_scaled, wwt_pairs, coeffs, **kw, logm=logm)
     b, nb = tr_scaled.shape
     feats = torch.empty((b, nb * PAIRS), dtype=torch.float32, device=grams.device)
     flags = torch.empty((b, nb), dtype=torch.bool, device=grams.device)
     if b == 0:
         return feats, flags
     lib = _library()
+    if logm == "chebyshev":
+        return _launch_chebyshev(lib, grams, tr_scaled, wwt_pairs, coeffs, feats, flags, **kw)
     terms = len(poles)
     if terms > lib.nsd_logcov_feats_max_terms():
         raise ValueError(f"{terms} poles exceed the kernel's limit of {lib.nsd_logcov_feats_max_terms()}")
@@ -138,4 +169,24 @@ def logcov_feats(
         msg = lib.nsd_cuda_error_string(err).decode()
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} ({msg})")
     kernels.count_launch(NAME)
+    return feats, flags
+
+
+def _launch_chebyshev(lib, grams, tr_scaled, wwt_pairs, coeffs, feats, flags, *, scale, alpha, lo, hi, guard_g):
+    degree = len(coeffs) - 1
+    if degree > lib.nsd_logcov_feats_max_degree():
+        raise ValueError(f"degree {degree} exceeds the kernel's limit of {lib.nsd_logcov_feats_max_degree()}")
+    cbuf = device_coeffs(tuple(float(c) for c in coeffs), grams.device)
+    b, nb = tr_scaled.shape
+    with torch.cuda.device(grams.device):
+        stream = torch.cuda.current_stream(grams.device).cuda_stream
+        err = lib.nsd_logcov_feats_chebyshev(
+            grams.data_ptr(), tr_scaled.data_ptr(), wwt_pairs.data_ptr(),
+            feats.data_ptr(), flags.data_ptr(), b, nb, cbuf.data_ptr(), degree,
+            scale, alpha, lo, hi, guard_g, stream,
+        )
+    if err != 0:
+        msg = lib.nsd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{CHEB_NAME} kernel launch failed: CUDA error {err} ({msg})")
+    kernels.count_launch(CHEB_NAME)
     return feats, flags

@@ -1,10 +1,11 @@
 """Batched 8x8 SPD algebra of the log-covariance features, as plain PyTorch.
 
-The stages of JAX models/logcov.py:310-427 (unrolled pivot-free
-Gauss-Jordan inverse, rational matrix log, unrolled Cholesky PD test,
-spectrum guard), written on [..., C, C] tensors with explicit scalars so
-that models/logcov.py (the stages path) and the feature kernel's plain twin
-(ops/kernels/logmfeats.py) run the same arithmetic. Every elementwise step
+The stages of JAX models/logcov.py:250-427 and :686-690 (Chebyshev-Clenshaw
+matrix log, unrolled pivot-free Gauss-Jordan inverse, rational matrix log,
+eigendecomposition log, unrolled Cholesky PD test, spectrum guard), written on [..., C, C] tensors with
+explicit scalars so that models/logcov.py (the stages path) and the
+kernels' plain twins (ops/kernels/logmfeats.py, ops/kernels/logm.py) run
+the same arithmetic. Every elementwise step
 is one IEEE-rounded PyTorch op. The shrinkage, trace and Cholesky test are
 in the order the feature kernel (csrc/logcov_feats.cu) does them, without
 FMAs, so the guard decides bit for bit as the kernel does; in the
@@ -65,6 +66,59 @@ def logm_rational(
     for p, v in zip(poles, weights):
         out = out + v * inv_tiny_spd(a - p * eye)
     return out + torch.log(tr) * eye
+
+
+def chebyshev_domain_map(s: torch.Tensor, lo: float, hi: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t, tr / C) for [..., C, C] SPD matrices: A = S / (tr S / C) mapped
+    onto the Chebyshev domain, t = (2 A - (hi + lo) I) / (hi - lo), whose
+    eigenvalues lie in [-1, 1] when those of A lie in [lo, hi]."""
+    c = s.shape[-1]
+    eye = eye_like(s)
+    tr = trace(s)[..., None, None] / c
+    a = s / tr
+    return (2.0 * a - (hi + lo) * eye) / (hi - lo), tr
+
+
+def clenshaw(t: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
+    """sum_k c_k T_k(t) of [..., C, C] matrices t by the matrix Clenshaw
+    recurrence b0 = c_k I + 2 t b1 - b2 for k = degree..1, then
+    c_0 I + t b1 - b2. Coefficients are rounded to t's dtype; the products
+    are full precision (the callers keep TF32 off)."""
+    cs = torch.tensor(coeffs, dtype=torch.float64).to(t.dtype).tolist()
+    eye = eye_like(t)
+    b1 = torch.zeros_like(t)
+    b2 = torch.zeros_like(t)
+    for ck in cs[:0:-1]:
+        b1, b2 = ck * eye + 2.0 * torch.matmul(t, b1) - b2, b1
+    return cs[0] * eye + torch.matmul(t, b1) - b2
+
+
+def logm_chebyshev(s: torch.Tensor, coeffs: Sequence[float], lo: float, hi: float) -> torch.Tensor:
+    """logm of [..., C, C] SPD matrices as the Chebyshev series of log on
+    [lo, hi] of the trace-normalised matrix, plus log(tr S / C) I (JAX
+    models/logcov.py:250-284, _logm_spd_chebyshev)."""
+    t, tr = chebyshev_domain_map(s, lo, hi)
+    return clenshaw(t, coeffs) + torch.log(tr) * eye_like(s)
+
+
+# torch.linalg.eigh on CUDA (cuSOLVER's batched solver) refuses a batch of
+# 32768 8x8 matrices or more with CUSOLVER_STATUS_INVALID_VALUE (H100,
+# torch 2.11, CUDA 12.8) and takes 16384; larger batches go in chunks.
+EIGH_BATCH = 16384
+
+
+def logm_eigh(s: torch.Tensor) -> torch.Tensor:
+    """logm of [..., C, C] symmetric matrices by eigendecomposition,
+    eigenvalues clamped at 1e-12 (JAX models/logcov.py:686-690)."""
+    c = s.shape[-1]
+    flat = s.reshape(-1, c, c)
+    if flat.shape[0] == 0:
+        return torch.empty_like(s)
+    outs = []
+    for part in flat.split(EIGH_BATCH):
+        w, v = torch.linalg.eigh(part)
+        outs.append(torch.matmul(v * torch.log(torch.clamp(w, min=1e-12))[..., None, :], v.transpose(-1, -2)))
+    return torch.cat(outs).reshape(s.shape)
 
 
 def pd_mask(m: torch.Tensor) -> torch.Tensor:

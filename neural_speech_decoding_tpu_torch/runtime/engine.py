@@ -147,14 +147,22 @@ class InferenceEngine(_ServingBase):
         class_names: Optional[Sequence[str]] = None,
         sample_rate: Optional[int] = None,
         model: str = "lstm",
+        turbo: bool = False,
+        donate: bool = False,
         model_kw: Optional[dict] = None,
+        mesh=None,
         device: DeviceLike = None,
     ):
         """`model_path` is a native .npz pytree or a reference .pth (LSTM
         families); `params` a parameter pytree (numpy or tensor leaves)
         instead. `model` is a family of models/registry.py; `model_kw`
         overrides its config (e.g. whiten=True for a whitened logcov
-        checkpoint)."""
+        checkpoint). `turbo`, `donate` and `mesh` are the JAX engine's
+        keywords; only their defaults are served."""
+        if turbo or donate or mesh is not None:
+            raise NotImplementedError(
+                "turbo, donate and mesh are not ported yet (ROADMAP.md: mesh/turbo serving)"
+            )
         self._spec = get_model(model, **(model_kw or {}))
         self.device = resolve_device(device)
         _disable_tf32()

@@ -1,6 +1,7 @@
 """Tests of the port that need the card: each CUDA kernel (pair sums, band
-grams, log-covariance features) against its plain twin, and the engines on
-CUDA against the same engines on the CPU.
+grams, log-covariance features in both modes, the Clenshaw matrix log, the
+zero-phase IIR cascade) against its plain twin, and the engines on CUDA
+against the same engines on the CPU.
 
 No JAX here (the machine with the card has none); run there with
   python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest -p no:cacheprovider
@@ -23,6 +24,8 @@ from neural_speech_decoding_tpu_torch.config import FilterConfig
 from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
 from neural_speech_decoding_tpu_torch.models import logcov
 from neural_speech_decoding_tpu_torch.models.registry import get_model
+from neural_speech_decoding_tpu_torch.ops.kernels import iir as iir_kernels
+from neural_speech_decoding_tpu_torch.ops.kernels import logm as logm_kernels
 from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams, band_grams_plain
 from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats, logcov_feats_plain
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
@@ -31,6 +34,7 @@ from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
 
 REPO = Path(__file__).resolve().parents[1]
 FLAGSHIP = REPO / "checkpoints" / "logcov8wd_ens_manifest.json"
+CHEB_KW = {"whiten": True, "dropout": 0.0, "logm": "chebyshev"}
 T, C = 625, 8
 
 pytestmark = pytest.mark.cuda
@@ -86,7 +90,7 @@ def test_engine_cuda_matches_cpu(cuda):
     assert np.abs(gpu - cpu).max() <= 1e-4
 
 
-def _logcov_kernel_inputs(batch: int, dev, cold: bool):
+def _logcov_kernel_inputs(batch: int, dev, cold: bool, logm: str = "rational"):
     """The flagship's kernel inputs for `batch` board-like windows through
     the card's filter: window 0 has channel 3 dead (from _windows) and
     channel 2 railed (x1e6), window 1 is
@@ -99,7 +103,7 @@ def _logcov_kernel_inputs(batch: int, dev, cold: bool):
         x[1] = 0.0
         x[2, :, 5] = 0.002 * np.sin(np.arange(T, dtype=np.float32) * 0.3)
     filtered = mai_filter_batch(x, FilterConfig(precision="fast"), device=dev)
-    cfg = get_model("logcov8", whiten=True, dropout=0.0).config
+    cfg = get_model("logcov8", whiten=True, dropout=0.0, logm=logm).config
     w = torch.from_numpy(load_params_npz(REPO / "checkpoints" / "logcov8wd_ens_s0.npz")["whitener"]).to(dev)
     if cold:
         w = w * torch.where(torch.arange(8, device=dev) == 5, 0.1, 1.0)[None, None, :]
@@ -218,3 +222,163 @@ def test_flagship_ensemble_cuda_matches_cpu(cuda):
     cpu = EnsembleEngine.from_manifest(str(FLAGSHIP), device="cpu")
     assert np.abs(got - cpu.predict_batch(x)).max() <= 1e-4
     assert gpu.stats == cpu.stats
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1024])
+@pytest.mark.parametrize("cold", [False, True])
+def test_logcov_feats_chebyshev_kernel_matches_plain(cuda, batch, cold):
+    """Chebyshev mode: features within 5e-5 of each window's max(scale,
+    1), flags equal to the twin's and to the rational mode's on the same
+    grams (steps 1-2 are the same code), counted under its own name."""
+    k = _logcov_kernel_inputs(batch, cuda, cold, logm="chebyshev")
+    kr = _logcov_kernel_inputs(batch, cuda, cold)
+    grams = band_grams_plain(k.yw, k.offsets)
+    before = kernels.launches()
+    feats, flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["logcov_feats_chebyshev"] == before["logcov_feats_chebyshev"] + 1
+    assert after["logcov_feats"] == before["logcov_feats"]
+    want, want_flags = logcov_feats_plain(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
+    _, rational_flags = logcov_feats(grams, kr.tr_scaled, kr.wwt_pairs, kr.coeffs, **kr.scalars)
+    assert feats.shape == (batch, 288) and flags.dtype == torch.bool
+    assert torch.equal(flags, want_flags) and torch.equal(flags, rational_flags)
+    if cold and batch >= 3:
+        assert flags[0].all() and flags[2].any() and not flags.all()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    assert ((feats - want).abs() / scale).max().item() <= 5e-5
+
+
+def _band_covariances(batch: int, dev):
+    """Unwhitened logcov8 band covariances of random windows through the
+    card's filter: [batch, 8, 8, 8], in the domain by the shrinkage floor."""
+    cfg = get_model("logcov8").config
+    x = mai_filter_batch(_windows(batch, batch + 200) / 40.0, FilterConfig(precision="fast"), device=dev)
+    return logcov.band_covariances(x, cfg), cfg
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1024])
+def test_logm_clenshaw_kernel_matches_plain(cuda, batch):
+    """Degree 320 on in-domain spectra: <= 5e-5 absolute (the JAX
+    package's kernel-vs-scan limit); the result is exactly symmetric."""
+    s, cfg = _band_covariances(batch, cuda)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    before = kernels.launches()["logm_clenshaw"]
+    got = logm_kernels.logm_spd_chebyshev(s, coeffs, lo, hi)
+    torch.cuda.synchronize()
+    assert kernels.launches()["logm_clenshaw"] == before + 1
+    want = logm_kernels.logm_spd_chebyshev_plain(s, coeffs, lo, hi)
+    assert got.shape == s.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 5e-5
+    assert torch.equal(got, got.transpose(-1, -2))
+
+
+def test_iir_cascade_kernel_matches_plain(cuda):
+    """The collector's 14 sections forward then reversed, B = 37: within
+    3e-5 of each window's scale of the twin (chip_smoke.py states the
+    limit), and within 1e-4 of the float64 twin (the scipy composite)."""
+    x = torch.from_numpy(_windows(37, 11)).to(cuda)
+    x = x - x.mean(dim=1, keepdim=True)
+    sos = iir_kernels.stack_sos(iir_kernels.collector_stages())
+    before = kernels.launches()["iir_cascade"]
+    got = iir_kernels.iir_cascade(x, sos)
+    torch.cuda.synchronize()
+    assert kernels.launches()["iir_cascade"] == before + 1
+    want = iir_kernels.iir_cascade_plain(x, sos)
+    exact = iir_kernels.iir_cascade_plain(x.double(), sos)
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((got - want).abs() / scale).max().item() <= 3e-5
+    assert ((got.double() - exact).abs() / scale).max().item() <= 1e-4
+    out = iir_kernels.fused_preprocess(x, iir_kernels.collector_stages(), zscore=True)
+    assert out.device.type == "cuda" and torch.isfinite(out).all()
+
+
+def test_chebyshev_launch_counts(cuda):
+    """logm="chebyshev" on a CUDA tensor: the kernel route (whitened) runs
+    the feature kernel in Chebyshev mode, the stages path (unwhitened) the
+    Clenshaw kernel; logm="chebyshev_scan" reaches neither."""
+    x = mai_filter_batch(_windows(8, 21) / 40.0, FilterConfig(precision="fast"), device=cuda)
+    w = torch.from_numpy(load_params_npz(REPO / "checkpoints" / "logcov8wd_ens_s0.npz")["whitener"]).to(cuda)
+    cases = [
+        (get_model("logcov8", **CHEB_KW).config, w, {"bandcov_grams": 1, "logcov_feats_chebyshev": 1}),
+        (get_model("logcov8", logm="chebyshev").config, None, {"logm_clenshaw": 1}),
+        (get_model("logcov8", whiten=True, logm="chebyshev", fused="stages").config, w,
+         {"bandcov_grams": 1, "logm_clenshaw": 1}),
+        (get_model("logcov8", logm="chebyshev_scan").config, None, {}),
+        (get_model("logcov8", whiten=True, logm="chebyshev_scan").config, w, {"bandcov_grams": 1}),
+    ]
+    outs = []
+    for cfg, whitener, counts in cases:
+        kernels.reset_launches()
+        outs.append(logcov.logcov_features(x, cfg, whitener))
+        torch.cuda.synchronize()
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update(counts)
+        assert kernels.launches() == want, (cfg.logm, cfg.fused, whitener is None)
+    # the routes compute the same features
+    assert (outs[0] - outs[2]).abs().max().item() <= 5e-5 * outs[2].abs().max().item()
+    assert (outs[1] - outs[3]).abs().max().item() <= 5e-5 * outs[3].abs().max().item()
+
+
+class _FailingLaunch:
+    """A loaded library whose launch entry returns cudaErrorInvalidValue."""
+
+    def __init__(self, lib, entry):
+        self._lib, self._entry = lib, entry
+
+    def __getattr__(self, name):
+        if name == self._entry:
+            return lambda *args: 1
+        return getattr(self._lib, name)
+
+
+def test_failed_launch_raises_and_does_not_fall_back(cuda, monkeypatch):
+    """A CUDA tensor whose launch fails raises RuntimeError and counts
+    nothing; it never takes the twin."""
+    s, cfg = _band_covariances(4, cuda)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    lib = logm_kernels._library()
+    monkeypatch.setattr(logm_kernels, "_library", lambda: _FailingLaunch(lib, "nsd_logm_clenshaw"))
+    before = kernels.launches()
+    with pytest.raises(RuntimeError, match="logm_clenshaw kernel launch failed"):
+        logm_kernels.logm_spd_chebyshev(s, coeffs, lo, hi)
+    x = torch.from_numpy(_windows(2, 3)).to(cuda)
+    ilib = iir_kernels._library()
+    monkeypatch.setattr(iir_kernels, "_library", lambda: _FailingLaunch(ilib, "nsd_iir_cascade"))
+    with pytest.raises(RuntimeError, match="iir_cascade kernel launch failed"):
+        iir_kernels.iir_cascade(x, iir_kernels.stack_sos(iir_kernels.collector_stages()))
+    assert kernels.launches() == before
+    with pytest.raises(ValueError, match="limit"):
+        logm_kernels.clenshaw(s.reshape(-1, 8, 8), tuple(range(5000)))
+    with pytest.raises(ValueError, match="limit"):
+        iir_kernels.iir_cascade(x, np.zeros((40, 6)))
+
+
+def test_chebyshev_flagship_cuda_matches_cpu(cuda):
+    """The flagship served with logm="chebyshev" on the card against the
+    same engine on the CPU: probabilities within 1e-4, equal guard
+    counts."""
+    x = _windows(16, 9) / 40.0
+    gpu = EnsembleEngine.from_manifest(str(FLAGSHIP), model_kw=CHEB_KW)
+    got = gpu.predict_batch(x)
+    cpu = EnsembleEngine.from_manifest(str(FLAGSHIP), model_kw=CHEB_KW, device="cpu")
+    assert np.abs(got - cpu.predict_batch(x)).max() <= 1e-4
+    assert gpu.stats == cpu.stats
+
+
+def test_eigh_backend_beyond_the_solver_batch(cuda):
+    """logm="eigh" on the card: cuSOLVER's batched eigh refuses 32768
+    8x8 matrices and more, so spd.logm_eigh goes in chunks; 40000
+    matrices (5000 windows of 8 bands) agree with the CPU within 1e-4."""
+    from neural_speech_decoding_tpu_torch.ops import spd
+
+    rng = np.random.default_rng(5)
+    q, _ = np.linalg.qr(rng.normal(size=(40000, 8, 8)))
+    lam = rng.uniform(0.1, 5.0, size=(40000, 8))
+    a = torch.from_numpy(np.einsum("mij,mj,mkj->mik", q, lam, q).astype(np.float32))
+    got = spd.logm_eigh(a.to(cuda).reshape(5000, 8, 8, 8))
+    assert got.shape == (5000, 8, 8, 8)
+    want = torch.from_numpy(np.einsum("mij,mj,mkj->mik", q, np.log(lam), q)).float()
+    assert (got.cpu().reshape(-1, 8, 8) - want).abs().max().item() <= 1e-4

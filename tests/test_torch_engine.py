@@ -124,6 +124,17 @@ def test_engine_refusals(monkeypatch):
         InferenceEngine(str(NPZ3))
 
 
+def test_engine_takes_the_jax_keywords():
+    """turbo, donate and mesh, as the JAX InferenceEngine takes them: the
+    defaults serve as before, any other value raises NotImplementedError
+    naming ROADMAP.md (never TypeError)."""
+    engine = InferenceEngine(str(NPZ3), turbo=False, donate=False, mesh=None, device="cpu")
+    assert engine.predict_batch(raw_windows(2, 4)).shape == (2, 3)
+    for kw in ({"turbo": True}, {"donate": True}, {"mesh": object()}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            InferenceEngine(str(NPZ3), device="cpu", **kw)
+
+
 def test_pth_round_trip(tmp_path):
     """(f) The JAX package writes a reference-layout .pth from the shipped
     .npz; the port's torch.load-based loader reads back the same

@@ -218,11 +218,21 @@ def test_unwhitened_features_other_band_layouts(filtered, family):
 
 
 def test_unported_backends_raise(filtered):
+    """No logcov backend is left unported: an unknown logm or spectral
+    method raises ValueError, as in JAX, with or without a whitener and on
+    either fusion level; the shrinkage floor is still enforced."""
     x = torch.from_numpy(filtered[:2])
-    for kw in ({"logm": "chebyshev"}, {"spectral": "fft"}):
-        cfg = tlc.LogCovConfig(**kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlc.logcov_features(x, cfg)
+    w = torch.from_numpy(jax_load_npz(CKPT / "logcov8wd_ens_s0.npz")["whitener"])
+    for whitener in (None, w):
+        for kw in ({"logm": "pade"}, {"logm": "pade", "fused": "stages"}):
+            with pytest.raises(ValueError, match="unknown logm backend"):
+                tlc.logcov_features(x, tlc.LogCovConfig(bands=_configs("logcov8")[1].bands, **kw), whitener)
+            with pytest.raises(ValueError, match="unknown logm backend"):
+                jlc.logcov_features(jnp.asarray(filtered[:2]), jlc.LogCovConfig(**kw))
+        with pytest.raises(ValueError, match="unknown spectral method"):
+            tlc.logcov_features(x, tlc.LogCovConfig(bands=_configs("logcov8")[1].bands, spectral="dct"), whitener)
+    with pytest.raises(ValueError, match="unknown spectral method"):
+        jlc.logcov_features(jnp.asarray(filtered[:2]), jlc.LogCovConfig(spectral="dct"))
     with pytest.raises(ValueError, match="below the Chebyshev"):
         tlc.LogCovConfig(shrinkage=0.001)
 
