@@ -19,10 +19,9 @@
 //                 pivot is <= 0 the band is flagged and s is replaced by
 //                 (1 - g) s + g (tr / C + 1e-12) I; tr is recomputed
 //   3. matrix log A = s * (1 / (tr / C));
-//                 out = c0 I + sum_j v_j (A - p_j I)^{-1}, each inverse by
-//                 pivot-free Gauss-Jordan: r = 1 / m_ii, pivot row m_i r,
-//                 every row k updated by g_k = m_ki - delta_ki (the uniform
-//                 rank-1 form); poles accumulated in order
+//                 out = c0 I + sum_j v_j (A - p_j I)^{-1}, poles accumulated
+//                 in order (the twin inverts each shift by pivot-free
+//                 Gauss-Jordan; this kernel as set out below)
 //   4. features   out_ii + log(tr / C) on the diagonal, sqrt(2) out_ij off
 //                 it, upper triangle row-major: feats[b, k * 36 + p]
 // and flags[b, k] = 1 where the guard fired. Steps 1 and 2 use explicitly
@@ -36,8 +35,8 @@
 // recurrence over the degree + 1 coefficients in device memory
 // (clenshaw_sym8.cuh): out = c_0 I + t b_1 - b_2. One thread owns one
 // matrix there (the upper triangles of t, b1 and b2 in registers), since
-// every step needs every entry of b1; the 8-lanes-a-matrix layout of the
-// rational mode would broadcast all of b1 at each of the 320 steps.
+// every step needs every entry of b1; spreading a matrix over lanes would
+// broadcast all of b1 at each of the 320 steps.
 // Bound (B = 16384, degree 320): the same 38.4 MB, 0.0115 ms; the least
 // work is an eigendecomposition (about 9 C^3), the scalar series at C
 // eigenvalues (3 d C), V f(L) V^T (2 C^3) and the guard, about 13.7 kFLOP
@@ -47,28 +46,41 @@
 // Bound on this card (logcov8, B = 16384, 131072 matrices): bytes are the
 // gram pairs read once and the features written once, 18.9 MB each, plus
 // the traces and flags (0.5 + 0.13 MB): about 38.4 MB, 0.0115 ms at
-// 3.35 TB/s. Operations: this kernel's Gauss-Jordan costs about 29 kFLOP a
-// matrix (3.8 GFLOP, 0.057 ms at 67 TFLOP/s), but that is the design's
-// choice, not the floor. The least work for the same function is about
-// 4.5 kFLOP a matrix: a Householder tridiagonal reduction (4/3 C^3), 12
-// shifted tridiagonal inverses (3 C^2 each), the back-transformation
-// (2 C^3), the Cholesky guard (C^3 / 3) and the elementwise steps,
-// 0.59 GFLOP, 0.009 ms. So the function is bound by bytes, at about
+// 3.35 TB/s. The least work is about 4.5 kFLOP a matrix (0.59 GFLOP,
+// 0.009 ms at 67 TFLOP/s): the Householder reduction, the shifted
+// tridiagonal inverses, the back-transformation, the Cholesky guard and
+// the elementwise steps. So the function is bound by bytes, at about
 // 0.0115 ms (chip_smoke.py computes the bound from the run's shapes).
 //
-// Design (simple and right first; see PERF.md for its time):
-//   * 8 lanes per matrix, 4 matrices per warp, 16 per block; lane i owns
-//     row i of the shifted matrix m, of its inverse and of the output, so
-//     a thread holds about 40 floats of Gauss-Jordan state instead of the
-//     190 a one-thread-per-matrix design would spill;
-//   * each pivot row (m_i and inv_i, 16 floats) is broadcast from lane i
-//     to its 7 neighbours with __shfl_sync over an 8-lane segment;
-//   * the shrinkage and the guard are cheap (about 300 operations), so
-//     every lane of a matrix computes them redundantly from the 36 pairs
-//     in registers and keeps the row it owns; lane 0 writes the flag;
-//   * the 36 pairs of a matrix are read by its 8 lanes from the same
-//     addresses (one transaction each), and the lanes write the 36
-//     features of their upper-triangle rows.
+// Rational mode, design: one thread owns one matrix (32-thread blocks, so
+// the 8192 matrices of B = 1024 spread over 256 blocks). The guard runs
+// once a matrix and nothing crosses lanes: an earlier design gave each
+// matrix 8 lanes, ran the guard (about 130 IEEE divisions) in all 8, and
+// broadcast every Gauss-Jordan pivot row by shuffles, 1536 shuffles a warp
+// for 29 kFLOP a matrix, which bound it at about a quarter of the FMA rate.
+// Step 3 here takes the route the bound counts:
+//   a. Householder tridiagonalisation T = Q^T A Q by 6 reflectors, on the
+//      packed upper triangle in float64 (about 700 operations a matrix),
+//      T and the reflectors then rounded to float32 and kept in registers;
+//   b. per pole p_j < 0, in the twin's order, r += v_j (T - p_j I)^{-1}: the
+//      shift is SPD, so the bottom-up factorisation T - p I = U D U^T needs
+//      no pivoting (D_i >= lambda_min + |p_j|); with rho_i = -e_{i-1} / D_i
+//      the inverse is L D^-1 L^T, L_ij = rho_{j+1} ... rho_i, so M_jj =
+//      1 / D_j + rho_j^2 M_{j-1,j-1} (positive terms) and M_ij = rho_i
+//      M_{i-1,j} below it: 8 reciprocals and about 100 FMAs a pole;
+//   c. r <- Q r Q^T by the reflectors from both sides, then + c0 I.
+// The reduction works on A with its channels in ascending order of the
+// diagonal (a sorting network, then a gather through the thread's slot
+// of shared memory; the result is scattered back the same way). A float32
+// orthogonal reduction errs by about eps ||A|| in an eigenvalue: on the
+// graded matrices of a railed channel or a whitener gain cut tenfold, with
+// an eigenvalue near lo, it read up to 5x the twin's elimination error
+// against float64 on the card. In float64 with the small channel first, a
+// CPU emulation of the route reads at most 0.7x the twin's.
+// The reduction holds A's 36 entries in float64; the pole loop about 110
+// live floats (36 of r, 27 of reflectors, the tridiagonal, a pole's
+// pivots), all indexed by unrolled constants. The features go out in nine
+// 16-byte stores.
 // No fast-math: the guard and the pivots rely on IEEE division and sqrt.
 
 #include <cuda_runtime.h>
@@ -81,9 +93,8 @@ constexpr int kC = 8;                       // channels (the wrapper checks)
 constexpr int kPairs = kC * (kC + 1) / 2;   // 36
 constexpr int kMaxTerms = 32;               // resolvent poles
 constexpr int kMaxDegree = 4096;            // Chebyshev degree
-constexpr int kThreads = 128;               // 16 matrices of 8 lanes (rational)
+constexpr int kThreads = 32;                // 32 matrices (rational): B = 1024 spreads over 256 blocks
 constexpr int kChebThreads = 128;           // 128 matrices (Chebyshev)
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kSqrt2 = static_cast<float>(1.4142135623730951);  // float32 sqrt(2)
 
 struct GuardParams {
@@ -185,81 +196,219 @@ __device__ __forceinline__ bool shrink_and_guard(const float* __restrict__ g, fl
   return ok;
 }
 
+// perm[0..7]: the channels in ascending order of the diagonal d (Batcher's
+// 19-comparator network, in registers).
+__device__ __forceinline__ void ascending_order(const float (&d)[kC], int (&perm)[kC]) {
+  float key[kC];
+#pragma unroll
+  for (int i = 0; i < kC; ++i) {
+    key[i] = d[i];
+    perm[i] = i;
+  }
+  constexpr int kNet[19][2] = {{0, 2}, {1, 3}, {4, 6}, {5, 7}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {0, 1}, {2, 3},
+                               {4, 5}, {6, 7}, {2, 4}, {3, 5}, {1, 4}, {3, 6}, {1, 2}, {3, 4}, {5, 6}};
+#pragma unroll
+  for (int c = 0; c < 19; ++c) {
+    const int i = kNet[c][0], j = kNet[c][1];
+    const bool swap = key[j] < key[i];
+    const float ki = key[i], kj = key[j];
+    const int pi = perm[i], pj = perm[j];
+    key[i] = swap ? kj : ki;
+    key[j] = swap ? ki : kj;
+    perm[i] = swap ? pj : pi;
+    perm[j] = swap ? pi : pj;
+  }
+}
+
+// Step 3a: Householder reduction of the symmetric a (upper triangle) to
+// tridiagonal T = Q^T a Q, Q = H_0 ... H_5, H_k = I - beta_k v_k v_k^T with
+// v_k nonzero on k+1..7 only, in float64: on a graded matrix (a railed or a
+// cold channel) the float32 update a - v w^T - w v^T rounds the small
+// entries against the large ones, which moves an eigenvalue near lo by
+// about eps ||A||. Returns T's diagonal d and off-diagonal e and the
+// reflectors, rounded to float32; a is consumed.
+__device__ __forceinline__ void tridiagonalize(double (&a)[kPairs], float (&hv)[kC - 2][kC],
+                                               float (&hb)[kC - 2], float (&d)[kC], float (&e)[kC - 1]) {
+#pragma unroll
+  for (int k = 0; k < kC - 2; ++k) {
+    const double x0 = a[pidx(k, k + 1)];
+    double sigma = 0.0;
+#pragma unroll
+    for (int i = k + 2; i < kC; ++i) sigma = fma(a[pidx(k, i)], a[pidx(k, i)], sigma);
+    // sigma == 0: the column is already reduced; beta = 0 leaves a alone
+    const bool reflect = sigma > 0.0;
+    const double alpha = reflect ? -copysign(sqrt(fma(x0, x0, sigma)), x0) : x0;
+    double v[kC];
+    v[k + 1] = x0 - alpha;
+#pragma unroll
+    for (int i = k + 2; i < kC; ++i) v[i] = a[pidx(k, i)];
+    const double beta = reflect ? 2.0 / fma(v[k + 1], v[k + 1], sigma) : 0.0;
+    hb[k] = static_cast<float>(beta);
+    e[k] = static_cast<float>(alpha);
+#pragma unroll
+    for (int i = k + 1; i < kC; ++i) hv[k][i] = static_cast<float>(v[i]);
+    // trailing block B (rows and columns k+1..7): B - v w^T - w v^T with
+    // p = beta B v, w = p - (beta / 2) (p^T v) v
+    double p[kC], w[kC];
+    double pv = 0.0;
+#pragma unroll
+    for (int i = k + 1; i < kC; ++i) {
+      double acc = 0.0;
+#pragma unroll
+      for (int j = k + 1; j < kC; ++j) acc = fma(a[pidx(min(i, j), max(i, j))], v[j], acc);
+      p[i] = beta * acc;
+      pv = fma(p[i], v[i], pv);
+    }
+    const double half_bpv = 0.5 * beta * pv;
+#pragma unroll
+    for (int i = k + 1; i < kC; ++i) w[i] = p[i] - half_bpv * v[i];
+#pragma unroll
+    for (int i = k + 1; i < kC; ++i) {
+#pragma unroll
+      for (int j = i; j < kC; ++j) a[pidx(i, j)] -= v[i] * w[j] + w[i] * v[j];
+    }
+  }
+  e[kC - 2] = static_cast<float>(a[pidx(kC - 2, kC - 1)]);
+#pragma unroll
+  for (int i = 0; i < kC; ++i) d[i] = static_cast<float>(a[pidx(i, i)]);
+}
+
+// Step 3b: r += v (T - p I)^{-1} for the symmetric tridiagonal T (d, e),
+// every shift SPD (p < 0). With the pivot-free bottom-up factorisation
+// T - p I = U D U^T (D_i = d_i - p - e_i^2 / D_{i+1}, all >= lambda_min +
+// |p|), the inverse is L D^-1 L^T with L = U^-T unit lower triangular,
+// L_ij = rho_{j+1} ... rho_i, rho_i = -e_{i-1} / D_i; so its diagonal is
+// M_jj = 1 / D_j + rho_j^2 M_{j-1,j-1} (a sum of positive terms) and
+// below it M_ij = rho_i M_{i-1,j}: O(C^2), 8 reciprocals.
+__device__ __forceinline__ void add_shifted_inverse(const float (&d)[kC], const float (&e)[kC - 1],
+                                                    const float (&e2)[kC - 1], float p, float v,
+                                                    float (&r)[kPairs]) {
+  float inv[kC];
+  float piv = d[kC - 1] - p;
+  inv[kC - 1] = __frcp_rn(piv);
+#pragma unroll
+  for (int i = kC - 2; i >= 0; --i) {
+    piv = fmaf(-e2[i], inv[i + 1], d[i] - p);
+    inv[i] = __frcp_rn(piv);
+  }
+  float rho[kC];
+#pragma unroll
+  for (int i = 1; i < kC; ++i) rho[i] = -e[i - 1] * inv[i];
+  float mjj = inv[0];
+#pragma unroll
+  for (int j = 0; j < kC; ++j) {
+    if (j > 0) mjj = fmaf(rho[j] * rho[j], mjj, inv[j]);
+    r[pidx(j, j)] = fmaf(v, mjj, r[pidx(j, j)]);
+    float mij = mjj;
+#pragma unroll
+    for (int i = j + 1; i < kC; ++i) {
+      mij *= rho[i];
+      r[pidx(j, i)] = fmaf(v, mij, r[pidx(j, i)]);
+    }
+  }
+}
+
+// Step 3c: r <- Q r Q^T = H_0 (H_1 (... (H_5 r H_5) ...) H_1) H_0, each
+// two-sided update r - v w^T - w v^T with p = beta r v, w = p - (beta / 2)
+// (p^T v) v, v zero on 0..k.
+__device__ __forceinline__ void back_transform(const float (&hv)[kC - 2][kC], const float (&hb)[kC - 2],
+                                               float (&r)[kPairs]) {
+#pragma unroll
+  for (int k = kC - 3; k >= 0; --k) {
+    float p[kC], w[kC];
+    float pv = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = k + 1; j < kC; ++j) acc = fmaf(r[pidx(min(i, j), max(i, j))], hv[k][j], acc);
+      p[i] = hb[k] * acc;
+      if (i > k) pv = fmaf(p[i], hv[k][i], pv);
+    }
+    const float half_bpv = 0.5f * hb[k] * pv;
+#pragma unroll
+    for (int i = 0; i < kC; ++i) w[i] = i > k ? p[i] - half_bpv * hv[k][i] : p[i];
+#pragma unroll
+    for (int i = 0; i < kC; ++i) {
+#pragma unroll
+      for (int j = i; j < kC; ++j) {
+        const float vi = i > k ? hv[k][i] : 0.0f;
+        const float vj = j > k ? hv[k][j] : 0.0f;
+        r[pidx(i, j)] -= vi * w[j] + w[i] * vj;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 logcov_feats_kernel(const float* __restrict__ grams, const float* __restrict__ tr_scaled,
                     const float* __restrict__ wwt, float* __restrict__ feats,
                     unsigned char* __restrict__ flags, long long matrices, int nb,
                     Params prm) {
-  const int row = threadIdx.x & 7;
-  const long long mat = static_cast<long long>(blockIdx.x) * (kThreads / 8) + (threadIdx.x >> 3);
-  // Every lane takes part in the shuffles; a group past the end computes
-  // on the last matrix and writes nothing.
-  const bool active = mat < matrices;
-  const long long m_idx = active ? mat : matrices - 1;
-  const int band = static_cast<int>(m_idx % nb);
+  __shared__ float scratch[kPairs][kThreads];  // one packed matrix a thread, for the permutations
+  const long long m = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (m >= matrices) return;
+  const int band = static_cast<int>(m % nb);
 
-  // 1-2. shrinkage and guard, redundantly in every lane of the matrix
+  // 1-2. shrinkage and guard, once a matrix
   float s[kPairs];
   float trace;
-  const bool ok = shrink_and_guard(grams + m_idx * kPairs, __ldg(tr_scaled + m_idx),
-                                   wwt + band * kPairs, prm.guard, s, trace);
-  if (active && row == 0) flags[m_idx] = ok ? 0 : 1;
+  const bool ok = shrink_and_guard(grams + m * kPairs, __ldg(tr_scaled + m), wwt + band * kPairs,
+                                   prm.guard, s, trace);
+  flags[m] = ok ? 0 : 1;
 
-  // 3. trace-normalised rational matrix log; this lane owns row `row`
+  // 3. trace-normalised rational matrix log through the tridiagonal form,
+  // in the basis whose diagonal ascends (perm[i] is the channel at row i):
+  // a small channel then enters the reduction first, where no larger entry
+  // has been folded into it, which keeps an eigenvalue near lo accurate
   const float tr2 = __fdiv_rn(trace, static_cast<float>(kC));
   const float inv_tr = __fdiv_rn(1.0f, tr2);
-  float a_row[kC];
+  float* slot = scratch[0] + threadIdx.x;  // this thread's 36 words, stride kThreads
+  float diag[kC];
+  int perm[kC];
 #pragma unroll
-  for (int j = 0; j < kC; ++j) {
-    float v = 0.0f;
+  for (int q = 0; q < kPairs; ++q) slot[q * kThreads] = s[q] * inv_tr;  // A
 #pragma unroll
-    for (int i = 0; i < kC; ++i) {
-      if (row == i) v = s[pidx(min(i, j), max(i, j))];  // a select, no local memory
-    }
-    a_row[j] = v * inv_tr;
+  for (int i = 0; i < kC; ++i) diag[i] = slot[pidx(i, i) * kThreads];
+  ascending_order(diag, perm);
+#pragma unroll
+  for (int i = 0; i < kC; ++i) {
+#pragma unroll
+    for (int j = i; j < kC; ++j) s[pidx(i, j)] = slot[pidx(min(perm[i], perm[j]), max(perm[i], perm[j])) * kThreads];
   }
-  float out_row[kC];
+  double a[kPairs];
 #pragma unroll
-  for (int j = 0; j < kC; ++j) out_row[j] = (j == row) ? prm.c0 : 0.0f;
-
-  for (int t = 0; t < prm.terms; ++t) {
-    const float p = prm.poles[t];
-    float m_row[kC], inv_row[kC];
+  for (int q = 0; q < kPairs; ++q) a[q] = s[q];
+  float hv[kC - 2][kC], hb[kC - 2], d[kC], e[kC - 1], e2[kC - 1];
+  tridiagonalize(a, hv, hb, d, e);
 #pragma unroll
-    for (int j = 0; j < kC; ++j) {
-      m_row[j] = (j == row) ? a_row[j] - p : a_row[j];
-      inv_row[j] = (j == row) ? 1.0f : 0.0f;
-    }
+  for (int i = 0; i < kC - 1; ++i) e2[i] = e[i] * e[i];
+  float r[kPairs];
 #pragma unroll
-    for (int i = 0; i < kC; ++i) {
-      float mi[kC], vi[kC];
+  for (int q = 0; q < kPairs; ++q) r[q] = 0.0f;
+  for (int t = 0; t < prm.terms; ++t) add_shifted_inverse(d, e, e2, prm.poles[t], prm.weights[t], r);
+  back_transform(hv, hb, r);
 #pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        mi[j] = __shfl_sync(kFullMask, m_row[j], i, 8);
-        vi[j] = __shfl_sync(kFullMask, inv_row[j], i, 8);
-      }
-      const float r = __fdiv_rn(1.0f, mi[i]);
-      const float gk = m_row[i] - (row == i ? 1.0f : 0.0f);
+  for (int i = 0; i < kC; ++i) {  // back to the channels' order
 #pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        m_row[j] = m_row[j] - gk * (mi[j] * r);
-        inv_row[j] = inv_row[j] - gk * (vi[j] * r);
-      }
-    }
-    const float v = prm.weights[t];
-#pragma unroll
-    for (int j = 0; j < kC; ++j) out_row[j] = out_row[j] + v * inv_row[j];
+    for (int j = i; j < kC; ++j) slot[pidx(min(perm[i], perm[j]), max(perm[i], perm[j])) * kThreads] = r[pidx(i, j)];
   }
 
-  // 4. log(tr/C) on the diagonal, sqrt(2) off it, upper-triangle rows
-  if (!active) return;
+  // 4. c0 and log(tr/C) on the diagonal, sqrt(2) off it; 16-byte stores
   const float logtr = logf(tr2);
-  float* f = feats + m_idx * kPairs;
+  float f[kPairs];
 #pragma unroll
-  for (int j = 0; j < kC; ++j) {
-    if (j == row) f[pidx(row, j)] = out_row[j] + logtr;
-    if (j > row) f[pidx(row, j)] = out_row[j] * kSqrt2;
+  for (int i = 0; i < kC; ++i) {
+#pragma unroll
+    for (int j = i; j < kC; ++j) {
+      const int q = pidx(i, j);
+      const float v = slot[q * kThreads];
+      f[q] = i == j ? (v + prm.c0) + logtr : v * kSqrt2;
+    }
   }
+  float4* out = reinterpret_cast<float4*>(feats + m * kPairs);  // 144-byte rows: aligned
+#pragma unroll
+  for (int q = 0; q < kPairs / 4; ++q) out[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
 }
 
 __global__ void __launch_bounds__(kChebThreads)
@@ -346,7 +495,7 @@ int nsd_logcov_feats(const float* grams, const float* tr_scaled, const float* ww
     prm.weights[t] = t < terms ? static_cast<float>(coeffs[1 + terms + t]) : 0.0f;
   }
   const long long matrices = static_cast<long long>(batch) * nb;
-  const long long blocks = (matrices + kThreads / 8 - 1) / (kThreads / 8);
+  const long long blocks = (matrices + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   logcov_feats_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -8,9 +8,9 @@ kernels' plain twins (ops/kernels/logmfeats.py, ops/kernels/logm.py) run
 the same arithmetic. Every elementwise step
 is one IEEE-rounded PyTorch op. The shrinkage, trace and Cholesky test are
 in the order the feature kernel (csrc/logcov_feats.cu) does them, without
-FMAs, so the guard decides bit for bit as the kernel does; in the
-Gauss-Jordan steps the kernel forms FMAs, so there the two differ by
-rounding.
+FMAs, so the guard decides bit for bit as the kernel does; the kernel's
+matrix log takes another route to the same resolvent sum (a tridiagonal
+form, with FMAs), so there the two differ by rounding.
 """
 
 from __future__ import annotations

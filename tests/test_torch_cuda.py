@@ -70,6 +70,79 @@ def test_kernel_matches_plain(cuda, batch):
     assert got[0, 3, 3].item() == float(T)
 
 
+@pytest.mark.parametrize("t_len", [97, 256, 1250])
+@pytest.mark.parametrize("batch", [1, 37])
+def test_kernel_other_window_lengths(cuda, t_len, batch):
+    """The FFT plan of any T: 97 (prime: one direct-DFT stage), 256 (radix
+    4), 1250 (10 s at 125 Hz: radices 2 and 5). Within 2e-4 of the twin,
+    exactly symmetric, a dead channel's diagonal exactly T."""
+    x = (np.random.default_rng(t_len + batch).standard_normal((batch, t_len, C)) * 40.0).astype(np.float32)
+    x[0, :, 3] = 0.0
+    x = torch.from_numpy(x).to(cuda)
+    got = kuramoto_pair_sums(x)
+    want = kuramoto_pair_sums_plain(x)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-4
+    assert torch.equal(got, got.transpose(1, 2))
+    assert got[0, 3, 3].item() == float(t_len)
+
+
+def test_kernel_dead_channel_beside_railed_channel(cuda):
+    """Each channel is its own transform: a dead channel next to one railed
+    at 1e6 keeps im exactly 0, so its diagonal is exactly T and its row
+    matches the twin's within the limit."""
+    x = _windows(4, 13)
+    x[:, :, 4] = 0.0
+    x[:, :, 5] = 1e6 * np.sign(x[:, :, 5])
+    x = torch.from_numpy(x).to(cuda)
+    got = kuramoto_pair_sums(x)
+    want = kuramoto_pair_sums_plain(x)
+    torch.cuda.synchronize()
+    assert torch.all(got[:, 4, 4] == float(T))
+    assert (got[:, 4, :] - want[:, 4, :]).abs().max().item() <= 2e-4
+    assert (got - want).abs().max().item() <= 2e-4
+
+
+def _burst_windows(n: int, seed: int, channels=(2, 5)) -> np.ndarray:
+    """`channels` mostly flat (noise of 1e-2) with three 20-sample bursts
+    of amplitude 40: the bursts set the channels' mean x^2, so hundreds of
+    flat samples a window fall under the near-zero threshold."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, T, C)) * 40.0).astype(np.float32)
+    for w in range(n):
+        for ch in channels:
+            q = 0.01 * rng.standard_normal(T)
+            for start in rng.integers(0, T - 20, 3):
+                q[start : start + 20] += 40.0 * np.sin(0.9 * np.arange(20) + rng.uniform(0, 2 * np.pi))
+            x[w, :, ch] = q
+    return x
+
+
+@pytest.mark.parametrize("channels", [(2, 5), tuple(range(C))])
+@pytest.mark.parametrize("batch", [2, 37])
+def test_kernel_burst_channels(cuda, batch, channels):
+    """Hundreds of near-zero samples in every block (more than one round
+    of its 256 threads), which take im as the twin's dense product; with
+    every channel bursty, thousands (more than the block's queue, a
+    quarter of its samples: the scan). Within 2e-4 of the twin, exactly
+    symmetric, and against float64 at most twice the twin's error."""
+    from neural_speech_decoding_tpu_torch.ops.kernels.kuramoto import refine_below
+    from neural_speech_decoding_tpu_torch.ops.hilbert import hilbert_matrix
+
+    x = torch.from_numpy(_burst_windows(batch, 40 + batch, channels)).to(cuda)
+    got = kuramoto_pair_sums(x)
+    want = kuramoto_pair_sums_plain(x)
+    exact = kuramoto_pair_sums_plain(x.double())
+    xd = x.double()
+    im = torch.matmul(hilbert_matrix(T, cuda, torch.float64), xd)
+    low = (xd * xd + im * im) < refine_below() * (xd * xd).mean(dim=1, keepdim=True)
+    torch.cuda.synchronize()
+    assert low[:2].sum().item() > (4 * T if len(channels) == C else 256)
+    assert (got - want).abs().max().item() <= 2e-4
+    assert torch.equal(got, got.transpose(1, 2))
+    assert (got.double() - exact).abs().max().item() <= 2.0 * (want.double() - exact).abs().max().item()
+
+
 def test_kernel_rejects_bad_input(cuda):
     with pytest.raises(TypeError):
         kuramoto_pair_sums(torch.zeros(2, T, C, dtype=torch.float64, device=cuda))
@@ -167,6 +240,62 @@ def test_logcov_feats_kernel_matches_plain(cuda, batch, cold):
         assert flags[0].all() and flags[2].any() and not flags.all()
     scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
     assert ((feats - want).abs() / scale).max().item() <= 5e-5
+
+
+def _stieltjes_log_coeffs(lo, hi, terms):
+    """c0, poles, weights of log x ~ c0 - sum_j t_j du / (x + t_j): the
+    integral log x = int_0^inf (1 / (1 + t) - 1 / (x + t)) dt by the
+    midpoint rule in u = log t on [log(lo / 16), log(16 hi)]. Every weight
+    is negative and every term at most du in size, so the sum is as well
+    conditioned as the log itself at any number of poles."""
+    edges = np.linspace(np.log(lo / 16.0), np.log(16.0 * hi), terms + 1)
+    du = np.diff(edges)
+    t = np.exp(0.5 * (edges[:-1] + edges[1:]))
+    return float(np.sum(du * t / (1.0 + t))), tuple(-t), tuple(-du * t)
+
+
+@pytest.mark.parametrize("terms, fit", [(1, "lstsq"), (4, "lstsq"), (32, "stieltjes")])
+def test_logcov_feats_kernel_pole_counts(cuda, terms, fit):
+    """The one-thread-a-matrix route for 1, 4 and 32 poles (32 is the
+    kernel's limit), guard firing: flags equal to the twin's, features
+    within 5e-5 of each window's max(scale, 1). 1 and 4 poles are the
+    model's least-squares fits; at 32 poles that fit is ill-conditioned
+    (terms up to 1e3 cancel to a log of a few units, and the float32 twin
+    itself is 1.3e-3 of scale from float64: see the next test), so 32 poles
+    take a quadrature of the log's Stieltjes integral."""
+    k = _logcov_kernel_inputs(37, cuda, cold=True)
+    lo, hi = k.scalars["lo"], k.scalars["hi"]
+    make = logcov._rational_log_coeffs if fit == "lstsq" else _stieltjes_log_coeffs
+    c0, poles, weights = make(lo, hi, terms)
+    coeffs = (c0,) + tuple(poles) + tuple(weights)
+    grams = band_grams_plain(k.yw, k.offsets)
+    feats, flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, coeffs, **k.scalars)
+    want, want_flags = logcov_feats_plain(grams, k.tr_scaled, k.wwt_pairs, coeffs, **k.scalars)
+    torch.cuda.synchronize()
+    assert torch.equal(flags, want_flags) and flags.any()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    assert torch.isfinite(feats).all()
+    assert ((feats - want).abs() / scale).max().item() <= 5e-5
+
+
+def test_logcov_feats_kernel_ill_conditioned_fit(cuda):
+    """The model's 32-pole least-squares fit: kernel and twin round
+    differently through terms that cancel by three orders, so they are held
+    to float64 instead: flags equal, and the kernel's error of scale at
+    most twice the twin's."""
+    k = _logcov_kernel_inputs(37, cuda, cold=True)
+    c0, poles, weights = logcov._rational_log_coeffs(k.scalars["lo"], k.scalars["hi"], 32)
+    coeffs = (c0,) + tuple(poles) + tuple(weights)
+    grams = band_grams_plain(k.yw, k.offsets)
+    feats, flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, coeffs, **k.scalars)
+    want, want_flags = logcov_feats_plain(grams, k.tr_scaled, k.wwt_pairs, coeffs, **k.scalars)
+    exact, _ = logcov_feats_plain(grams.double(), k.tr_scaled.double(), k.wwt_pairs.double(), coeffs, **k.scalars)
+    torch.cuda.synchronize()
+    assert torch.equal(flags, want_flags)
+    scale = exact.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    kernel_err = ((feats.double() - exact).abs() / scale).max().item()
+    twin_err = ((want.double() - exact).abs() / scale).max().item()
+    assert kernel_err <= 2.0 * twin_err
 
 
 def test_stages_path_runs_the_gram_kernel(cuda):
