@@ -23,8 +23,10 @@ of the checkout. One line per phase, each with its elapsed seconds:
   3c. the slice-3 kernels the same way: the feature kernel in Chebyshev
      mode (flags also against the rational mode's), the Clenshaw matrix
      log (on the unwhitened band covariances; library yardstick: the eigh
-     route, which computes the exact log) and the zero-phase IIR cascade
-     (also against scipy in float64; its twin, a loop over T, timed once)
+     route, which computes the exact log), both no more than twice the
+     twin's distance from float64, with their registers and spills from
+     the build log, and the zero-phase IIR cascade (also against scipy in
+     float64; its twin, a loop over T, timed once)
   4. the LSTM path: InferenceEngine.predict_batch on 1024 synthetic raw
      windows, with the kernels' launch counts set to 0 just before and read
      just after; then 16 of those windows against the same engine on the
@@ -104,9 +106,9 @@ LOGM_ABS_TOL = 5e-5
 IIR_TWIN_TOL = 3e-5
 IIR_SCIPY_TOL = 1e-4  # of scale: the JAX package's own limit (tests/test_pallas_iir.py:36)
 # Against the same arithmetic in float64, a kernel may err at most this
-# many times as much as its float32 twin (the pair sums, the rational
-# features): each is held to the reference's own accuracy, not only to
-# the reference.
+# many times as much as its float32 twin (the pair sums, the feature kernel
+# in both modes, the Clenshaw kernel): each is held to the reference's own
+# accuracy, not only to the reference.
 F64_RATIO = 2.0
 LOGIT_TOL = 1e-4  # the JAX package's f32 fidelity budget
 PROB_TOL = 1e-4
@@ -134,6 +136,27 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_resources(log: str | None, kernel: str) -> str:
+    """Registers, stack frame and spills of the entry function whose name
+    holds `kernel`, from nvcc's -Xptxas -v log."""
+    if log is None:
+        return "not built in this run"
+    entry = props = None
+    found = {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props = line.split()[-1]
+        elif "stack frame" in line and props is not None and kernel in props:
+            found["spills"] = line.strip()
+        elif "Used" in line and "registers" in line and entry is not None and kernel in entry:
+            found["registers"] = line.split(":", 1)[1].strip()
+    if not found:
+        return f"{kernel} not in the build log"
+    return f"{found.get('registers', '?')}; {found.get('spills', '?')}"
 
 
 def synthetic_windows(n: int, seed: int) -> np.ndarray:
@@ -309,6 +332,13 @@ def logcov_kernel_inputs(b: int, seed: int, dev, logm: str = "rational"):
     return logcov.kernel_inputs(filtered, w, cfg)
 
 
+def identity_pairs(b: int, nb: int, dev) -> torch.Tensor:
+    """[b, nb * 36] pairs of 8x8 identities: the Chebyshev kernels' input
+    whose tridiagonal form needs no reflector and no QL sweep."""
+    iu, ju = np.triu_indices(C)
+    return torch.from_numpy(np.tile(np.eye(C)[iu, ju], (b, nb)).astype(np.float32)).to(dev)
+
+
 def scipy_zero_phase(x_btc: np.ndarray, sos: np.ndarray) -> np.ndarray:
     """The cascade's semantics in float64 (scipy): every section forward,
     then every section backward, each from a zero state, no padding."""
@@ -318,14 +348,16 @@ def scipy_zero_phase(x_btc: np.ndarray, sos: np.ndarray) -> np.ndarray:
     return scipy.signal.sosfilt(sos, fwd[:, ::-1], axis=1)[:, ::-1]
 
 
-def check_chebyshev_feats(dev):
+def check_chebyshev_feats(dev, build_log):
     """Phase 3c: the feature kernel in Chebyshev mode against its twin and
-    float64 on the gram kernel's output, flags against the twin's and the
-    rational mode's. Returns (max abs err, {B: times})."""
+    float64 on the gram kernel's output (at most F64_RATIO times the twin's
+    error against float64), flags against the twin's and the rational
+    mode's. Returns (max abs err, {B: times})."""
     from neural_speech_decoding_tpu_torch.models import logcov
     from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams
     from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats, logcov_feats_plain
 
+    phase(f"chebyshev feats kernel: {kernel_resources(build_log, 'logcov_feats_cheb_kernel')}")
     err_abs, times = 0.0, {}
     for b in BATCHES:
         k = logcov_kernel_inputs(b, seed=b + 1, dev=dev, logm="chebyshev")
@@ -352,13 +384,17 @@ def check_chebyshev_feats(dev):
             raise AssertionError(f"chebyshev feats B={b}: flags differ from the twin's or the rational mode's")
         if b >= 3 and not (flags[0].all() and flags[2].any() and not flags.all()):
             raise AssertionError(f"chebyshev feats B={b}: the guard did not fire as the inputs demand")
+        k64 = (feats.double() - exact).abs().max().item()
+        p64 = (want.double() - exact).abs().max().item()
+        if not k64 <= F64_RATIO * p64:
+            raise AssertionError(f"chebyshev feats B={b}: {k64 / p64:.2f}x the twin's error against float64 "
+                                 f"> {F64_RATIO}")
         err_abs = max(err_abs, diff.max().item())
         line = (f"chebyshev feats B={b}: max err {err:.3e} of each window's max(scale, 1) "
                 f"(tol {LOGCOV_FEATS_TOL}; largest scale {norm.max().item():.3f}), max abs err "
                 f"{diff.max().item():.3e}; flags equal to the twin's and the rational mode's "
-                f"({int(flags.sum())} of {flags.numel()} set); vs float64: kernel max "
-                f"{(feats.double() - exact).abs().max().item():.3e}, twin max "
-                f"{(want.double() - exact).abs().max().item():.3e}, float64 flags differ in "
+                f"({int(flags.sum())} of {flags.numel()} set); vs float64: kernel max {k64:.3e}, twin max "
+                f"{p64:.3e} (kernel / twin {k64 / p64:.2f}, limit {F64_RATIO}), float64 flags differ in "
                 f"{int((exact_flags != flags).sum())}")
         if b in TIMED:
             nb, degree = len(k.offsets) - 1, len(k.coeffs) - 1
@@ -366,16 +402,24 @@ def check_chebyshev_feats(dev):
             p_ms = start.elapsed_time(end)  # the twin, timed once (its first call)
             bound, by = logcov_feats_cheb_bound_ms(b, nb, degree)
             times[b] = (f_ms, p_ms, bound, by, None)
-            line += f"; kernel {f_ms:.4f} ms, plain {p_ms:.4f} ms (once), bound {bound:.4f} ms ({by})"
+            # where the time goes: without the series (degree 0), and on
+            # multiples of the identity (no reflector, no QL sweep)
+            d0_ms = cuda_ms(lambda: logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs[:1], **k.scalars), 20)
+            eye = identity_pairs(b, nb, dev)
+            eye_grams, eye_wwt = eye / k.scalars["scale"], eye[0].reshape(nb, PAIRS)
+            eye_ms = cuda_ms(lambda: logcov_feats(eye_grams, k.tr_scaled, eye_wwt, k.coeffs, **k.scalars), 20)
+            line += (f"; kernel {f_ms:.4f} ms (degree 0 {d0_ms:.4f} ms, identity matrices {eye_ms:.4f} ms), "
+                     f"plain {p_ms:.4f} ms (once), bound {bound:.4f} ms ({by})")
         phase(line)
         del k, grams, feats, want, exact
     return err_abs, times
 
 
-def check_clenshaw(dev):
+def check_clenshaw(dev, build_log):
     """Phase 3c: the Clenshaw kernel on the unwhitened logcov8 band
     covariances of board-like windows (in the domain by the shrinkage
-    floor), against its twin and float64; the port's logm="eigh" route
+    floor), against its twin and float64 (at most F64_RATIO times the
+    twin's error); the port's logm="eigh" route
     (torch.linalg.eigh in batches of at most 16384 matrices, log, product)
     as the library yardstick: it computes the exact log, not the
     polynomial. Returns
@@ -395,6 +439,7 @@ def check_clenshaw(dev):
     lo, hi = cfg.cheb_interval
     coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
 
+    phase(f"clenshaw kernel: {kernel_resources(build_log, 'logm_clenshaw_kernel')}")
     err_abs, times = 0.0, {}
     for b in BATCHES:
         filtered = mai_filter_batch(synthetic_windows(b, seed=b + 2), FilterConfig(precision="fast"), device=dev)
@@ -408,21 +453,29 @@ def check_clenshaw(dev):
             raise AssertionError(f"clenshaw B={b}: max abs err {err} > {LOGM_ABS_TOL}")
         if not torch.equal(got, got.transpose(-1, -2)):
             raise AssertionError(f"clenshaw B={b}: the result is not symmetric")
+        k64 = (got.double() - exact).abs().max().item()
+        p64 = (want.double() - exact).abs().max().item()
+        if not k64 <= F64_RATIO * p64:
+            raise AssertionError(f"clenshaw B={b}: {k64 / p64:.2f}x the twin's error against float64 > {F64_RATIO}")
         err_abs = max(err_abs, err)
         line = (f"logm clenshaw B={b} ({s.shape[0] * s.shape[1]} matrices, degree {cfg.cheb_degree}): "
-                f"max abs err {err:.3e} (tol {LOGM_ABS_TOL}); vs float64: kernel max "
-                f"{(got.double() - exact).abs().max().item():.3e}, twin max "
-                f"{(want.double() - exact).abs().max().item():.3e}; largest |logm| {exact.abs().max().item():.3f}")
+                f"max abs err {err:.3e} (tol {LOGM_ABS_TOL}); vs float64: kernel max {k64:.3e}, twin max "
+                f"{p64:.3e} (kernel / twin {k64 / p64:.2f}, limit {F64_RATIO}); largest |logm| "
+                f"{exact.abs().max().item():.3f}")
         if b in TIMED:
             t, _ = spd.chebyshev_domain_map(s, lo, hi)
             t = t.reshape(-1, C, C).contiguous()
             k_ms = cuda_ms(lambda: clenshaw(t, coeffs), 20)
+            d0_ms = cuda_ms(lambda: clenshaw(t, coeffs[:1]), 20)
+            eye = (0.3 * torch.eye(C, device=dev)).expand_as(t).contiguous()
+            eye_ms = cuda_ms(lambda: clenshaw(eye, coeffs), 20)
             p_ms = cuda_ms(lambda: spd.clenshaw(t, coeffs), 2)
             w_ms = cuda_ms(lambda: logm_spd_chebyshev(s, coeffs, lo, hi), 10)
             l_ms = cuda_ms(lambda: spd.logm_eigh(s), 3)
             bound, by = clenshaw_bound_ms(t.shape[0], cfg.cheb_degree)
             times[b] = (k_ms, p_ms, bound, by, l_ms)
-            line += (f"; kernel {k_ms:.4f} ms (wrapper with the torch map and log(tr/C) {w_ms:.4f} ms), "
+            line += (f"; kernel {k_ms:.4f} ms (degree 0 {d0_ms:.4f} ms, identity matrices {eye_ms:.4f} ms; "
+                     f"wrapper with the torch map and log(tr/C) {w_ms:.4f} ms), "
                      f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), library: the logm=eigh route "
                      f"(eigh in chunks of {spd.EIGH_BATCH} + log + product; the exact log) {l_ms:.4f} ms")
         phase(line)
@@ -692,8 +745,8 @@ def main() -> int:
         del k, got, want, feats, flags, want_f, want_flags
 
     # 3c. the slice-3 kernels against their twins
-    cheb_err, cheb_times = check_chebyshev_feats(dev)
-    logm_err, logm_times = check_clenshaw(dev)
+    cheb_err, cheb_times = check_chebyshev_feats(dev, logs.get("logcov_feats"))
+    logm_err, logm_times = check_clenshaw(dev, logs.get("logm_clenshaw"))
     iir_err, iir_times = check_iir(dev)
 
     # 4. the main path

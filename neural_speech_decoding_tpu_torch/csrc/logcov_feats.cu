@@ -29,19 +29,26 @@
 // FMA) in the order of the plain twin, so the guard decides exactly as the
 // twin does; step 3 lets the compiler form FMAs.
 //
-// Chebyshev mode: steps 1, 2 and 4 are the same code; step 3 builds, as the
-// JAX kernel does, a_ij = s_ij * (1 / (tr / C)), t_ii = (2 a_ii - (hi + lo))
-// / (hi - lo), t_ij = 2 a_ij / (hi - lo), and runs the matrix Clenshaw
-// recurrence over the degree + 1 coefficients in device memory
-// (clenshaw_sym8.cuh): out = c_0 I + t b_1 - b_2. One thread owns one
-// matrix there (the upper triangles of t, b1 and b2 in registers), since
-// every step needs every entry of b1; spreading a matrix over lanes would
-// broadcast all of b1 at each of the 320 steps.
+// Chebyshev mode: steps 1, 2 and 4 are the same code; step 3 evaluates the
+// JAX kernel's polynomial c_0 I + sum_k c_k T_k(t), t = (2 A - (hi + lo) I)
+// / (hi - lo), A = s * (1 / (tr / C)), through one eigendecomposition of A
+// (sym8_eigen.cuh) instead of the matrix Clenshaw recurrence: A's channels
+// in ascending order of the diagonal, the Householder tridiagonal form and
+// its implicit-shift QL iteration in float64, each eigenvalue mapped in
+// float64 onto [-1, 1], the scalar Clenshaw recurrence there in float64,
+// r = Z diag(p) Z^T in float32, the rational mode's back-transformation
+// and the inverse permutation: about 8 k float64 and 3 k float32
+// operations a matrix, where the JAX kernel's matrix recurrence does 320
+// steps of 288 FMAs. It also errs less: a float32 map onto the domain
+// rounds t by about 6e-8, which moves the log of an eigenvalue near lo by
+// about 1.2e-4; here the map is in float64. The time is latency-bound:
+// 168 registers a thread leave 12 warps an SM for the QL iteration's
+// serial float64 chain, and the series runs at the float64 rate.
 // Bound (B = 16384, degree 320): the same 38.4 MB, 0.0115 ms; the least
 // work is an eigendecomposition (about 9 C^3), the scalar series at C
 // eigenvalues (3 d C), V f(L) V^T (2 C^3) and the guard, about 13.7 kFLOP
-// a matrix, 1.8 GFLOP, 0.027 ms: bound by operations. The recurrence
-// itself does 184 kFLOP a matrix.
+// a matrix, 1.8 GFLOP, 0.027 ms at the float32 rate: bound by operations.
+// Design: one thread a matrix, 32-thread blocks, as the rational mode.
 //
 // Bound on this card (logcov8, B = 16384, 131072 matrices): bytes are the
 // gram pairs read once and the features written once, 18.9 MB each, plus
@@ -71,7 +78,9 @@
 //   c. r <- Q r Q^T by the reflectors from both sides, then + c0 I.
 // The reduction works on A with its channels in ascending order of the
 // diagonal (a sorting network, then a gather through the thread's slot
-// of shared memory; the result is scattered back the same way). A float32
+// of shared memory; the result is scattered back the same way; the
+// permutation, the reduction and the back-transformation are the shared
+// code of sym8_eigen.cuh). A float32
 // orthogonal reduction errs by about eps ||A|| in an eigenvalue: on the
 // graded matrices of a railed channel or a whitener gain cut tenfold, with
 // an eigenvalue near lo, it read up to 5x the twin's elimination error
@@ -85,7 +94,7 @@
 
 #include <cuda_runtime.h>
 
-#include "clenshaw_sym8.cuh"
+#include "sym8_eigen.cuh"
 
 namespace {
 
@@ -93,8 +102,7 @@ constexpr int kC = 8;                       // channels (the wrapper checks)
 constexpr int kPairs = kC * (kC + 1) / 2;   // 36
 constexpr int kMaxTerms = 32;               // resolvent poles
 constexpr int kMaxDegree = 4096;            // Chebyshev degree
-constexpr int kThreads = 32;                // 32 matrices (rational): B = 1024 spreads over 256 blocks
-constexpr int kChebThreads = 128;           // 128 matrices (Chebyshev)
+constexpr int kThreads = 32;                // 32 matrices a block: B = 1024 spreads over 256 blocks
 constexpr float kSqrt2 = static_cast<float>(1.4142135623730951);  // float32 sqrt(2)
 
 struct GuardParams {
@@ -117,8 +125,8 @@ struct Params {
 
 struct ChebParams {
   GuardParams guard;
-  float hi_plus_lo;       // float32(hi + lo), as the JAX kernel's constant
-  float hi_minus_lo;      // float32(hi - lo)
+  double hi_plus_lo;      // the domain map x = (2 lambda - (hi + lo)) / (hi - lo),
+  double inv_hi_minus_lo; // in float64
   int degree;
 };
 
@@ -196,83 +204,6 @@ __device__ __forceinline__ bool shrink_and_guard(const float* __restrict__ g, fl
   return ok;
 }
 
-// perm[0..7]: the channels in ascending order of the diagonal d (Batcher's
-// 19-comparator network, in registers).
-__device__ __forceinline__ void ascending_order(const float (&d)[kC], int (&perm)[kC]) {
-  float key[kC];
-#pragma unroll
-  for (int i = 0; i < kC; ++i) {
-    key[i] = d[i];
-    perm[i] = i;
-  }
-  constexpr int kNet[19][2] = {{0, 2}, {1, 3}, {4, 6}, {5, 7}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {0, 1}, {2, 3},
-                               {4, 5}, {6, 7}, {2, 4}, {3, 5}, {1, 4}, {3, 6}, {1, 2}, {3, 4}, {5, 6}};
-#pragma unroll
-  for (int c = 0; c < 19; ++c) {
-    const int i = kNet[c][0], j = kNet[c][1];
-    const bool swap = key[j] < key[i];
-    const float ki = key[i], kj = key[j];
-    const int pi = perm[i], pj = perm[j];
-    key[i] = swap ? kj : ki;
-    key[j] = swap ? ki : kj;
-    perm[i] = swap ? pj : pi;
-    perm[j] = swap ? pi : pj;
-  }
-}
-
-// Step 3a: Householder reduction of the symmetric a (upper triangle) to
-// tridiagonal T = Q^T a Q, Q = H_0 ... H_5, H_k = I - beta_k v_k v_k^T with
-// v_k nonzero on k+1..7 only, in float64: on a graded matrix (a railed or a
-// cold channel) the float32 update a - v w^T - w v^T rounds the small
-// entries against the large ones, which moves an eigenvalue near lo by
-// about eps ||A||. Returns T's diagonal d and off-diagonal e and the
-// reflectors, rounded to float32; a is consumed.
-__device__ __forceinline__ void tridiagonalize(double (&a)[kPairs], float (&hv)[kC - 2][kC],
-                                               float (&hb)[kC - 2], float (&d)[kC], float (&e)[kC - 1]) {
-#pragma unroll
-  for (int k = 0; k < kC - 2; ++k) {
-    const double x0 = a[pidx(k, k + 1)];
-    double sigma = 0.0;
-#pragma unroll
-    for (int i = k + 2; i < kC; ++i) sigma = fma(a[pidx(k, i)], a[pidx(k, i)], sigma);
-    // sigma == 0: the column is already reduced; beta = 0 leaves a alone
-    const bool reflect = sigma > 0.0;
-    const double alpha = reflect ? -copysign(sqrt(fma(x0, x0, sigma)), x0) : x0;
-    double v[kC];
-    v[k + 1] = x0 - alpha;
-#pragma unroll
-    for (int i = k + 2; i < kC; ++i) v[i] = a[pidx(k, i)];
-    const double beta = reflect ? 2.0 / fma(v[k + 1], v[k + 1], sigma) : 0.0;
-    hb[k] = static_cast<float>(beta);
-    e[k] = static_cast<float>(alpha);
-#pragma unroll
-    for (int i = k + 1; i < kC; ++i) hv[k][i] = static_cast<float>(v[i]);
-    // trailing block B (rows and columns k+1..7): B - v w^T - w v^T with
-    // p = beta B v, w = p - (beta / 2) (p^T v) v
-    double p[kC], w[kC];
-    double pv = 0.0;
-#pragma unroll
-    for (int i = k + 1; i < kC; ++i) {
-      double acc = 0.0;
-#pragma unroll
-      for (int j = k + 1; j < kC; ++j) acc = fma(a[pidx(min(i, j), max(i, j))], v[j], acc);
-      p[i] = beta * acc;
-      pv = fma(p[i], v[i], pv);
-    }
-    const double half_bpv = 0.5 * beta * pv;
-#pragma unroll
-    for (int i = k + 1; i < kC; ++i) w[i] = p[i] - half_bpv * v[i];
-#pragma unroll
-    for (int i = k + 1; i < kC; ++i) {
-#pragma unroll
-      for (int j = i; j < kC; ++j) a[pidx(i, j)] -= v[i] * w[j] + w[i] * v[j];
-    }
-  }
-  e[kC - 2] = static_cast<float>(a[pidx(kC - 2, kC - 1)]);
-#pragma unroll
-  for (int i = 0; i < kC; ++i) d[i] = static_cast<float>(a[pidx(i, i)]);
-}
-
 // Step 3b: r += v (T - p I)^{-1} for the symmetric tridiagonal T (d, e),
 // every shift SPD (p < 0). With the pivot-free bottom-up factorisation
 // T - p I = U D U^T (D_i = d_i - p - e_i^2 / D_{i+1}, all >= lambda_min +
@@ -308,36 +239,23 @@ __device__ __forceinline__ void add_shifted_inverse(const float (&d)[kC], const 
   }
 }
 
-// Step 3c: r <- Q r Q^T = H_0 (H_1 (... (H_5 r H_5) ...) H_1) H_0, each
-// two-sided update r - v w^T - w v^T with p = beta r v, w = p - (beta / 2)
-// (p^T v) v, v zero on 0..k.
-__device__ __forceinline__ void back_transform(const float (&hv)[kC - 2][kC], const float (&hb)[kC - 2],
-                                               float (&r)[kPairs]) {
+// Step 4 from the slot (the log without c0 and log(tr / C)): c0 and
+// log(tr / C) on the diagonal, sqrt(2) off it; nine 16-byte stores (the
+// 144-byte rows are aligned).
+__device__ __forceinline__ void write_features(const float* slot, float c0, float logtr, float* __restrict__ row) {
+  float f[kPairs];
 #pragma unroll
-  for (int k = kC - 3; k >= 0; --k) {
-    float p[kC], w[kC];
-    float pv = 0.0f;
+  for (int i = 0; i < kC; ++i) {
 #pragma unroll
-    for (int i = 0; i < kC; ++i) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = k + 1; j < kC; ++j) acc = fmaf(r[pidx(min(i, j), max(i, j))], hv[k][j], acc);
-      p[i] = hb[k] * acc;
-      if (i > k) pv = fmaf(p[i], hv[k][i], pv);
-    }
-    const float half_bpv = 0.5f * hb[k] * pv;
-#pragma unroll
-    for (int i = 0; i < kC; ++i) w[i] = i > k ? p[i] - half_bpv * hv[k][i] : p[i];
-#pragma unroll
-    for (int i = 0; i < kC; ++i) {
-#pragma unroll
-      for (int j = i; j < kC; ++j) {
-        const float vi = i > k ? hv[k][i] : 0.0f;
-        const float vj = j > k ? hv[k][j] : 0.0f;
-        r[pidx(i, j)] -= vi * w[j] + w[i] * vj;
-      }
+    for (int j = i; j < kC; ++j) {
+      const int q = pidx(i, j);
+      const float v = slot[q * kThreads];
+      f[q] = i == j ? (v + c0) + logtr : v * kSqrt2;
     }
   }
+  float4* out = reinterpret_cast<float4*>(row);
+#pragma unroll
+  for (int q = 0; q < kPairs / 4; ++q) out[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -358,65 +276,43 @@ logcov_feats_kernel(const float* __restrict__ grams, const float* __restrict__ t
   flags[m] = ok ? 0 : 1;
 
   // 3. trace-normalised rational matrix log through the tridiagonal form,
-  // in the basis whose diagonal ascends (perm[i] is the channel at row i):
-  // a small channel then enters the reduction first, where no larger entry
-  // has been folded into it, which keeps an eigenvalue near lo accurate
+  // in the basis whose diagonal ascends (perm[i] is the channel at row i)
   const float tr2 = __fdiv_rn(trace, static_cast<float>(kC));
   const float inv_tr = __fdiv_rn(1.0f, tr2);
   float* slot = scratch[0] + threadIdx.x;  // this thread's 36 words, stride kThreads
-  float diag[kC];
-  int perm[kC];
 #pragma unroll
   for (int q = 0; q < kPairs; ++q) slot[q * kThreads] = s[q] * inv_tr;  // A
-#pragma unroll
-  for (int i = 0; i < kC; ++i) diag[i] = slot[pidx(i, i) * kThreads];
-  ascending_order(diag, perm);
-#pragma unroll
-  for (int i = 0; i < kC; ++i) {
-#pragma unroll
-    for (int j = i; j < kC; ++j) s[pidx(i, j)] = slot[pidx(min(perm[i], perm[j]), max(perm[i], perm[j])) * kThreads];
-  }
-  double a[kPairs];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) a[q] = s[q];
+  int perm[kC];
   float hv[kC - 2][kC], hb[kC - 2], d[kC], e[kC - 1], e2[kC - 1];
-  tridiagonalize(a, hv, hb, d, e);
+  {
+    double a[kPairs], d64[kC], e64[kC - 1];
+    nsd::load_permuted<kThreads>(slot, perm, a);
+    nsd::tridiagonalize(a, hv, hb, d64, e64);
+#pragma unroll
+    for (int i = 0; i < kC; ++i) d[i] = static_cast<float>(d64[i]);
+#pragma unroll
+    for (int i = 0; i < kC - 1; ++i) e[i] = static_cast<float>(e64[i]);
+  }
 #pragma unroll
   for (int i = 0; i < kC - 1; ++i) e2[i] = e[i] * e[i];
   float r[kPairs];
 #pragma unroll
   for (int q = 0; q < kPairs; ++q) r[q] = 0.0f;
   for (int t = 0; t < prm.terms; ++t) add_shifted_inverse(d, e, e2, prm.poles[t], prm.weights[t], r);
-  back_transform(hv, hb, r);
-#pragma unroll
-  for (int i = 0; i < kC; ++i) {  // back to the channels' order
-#pragma unroll
-    for (int j = i; j < kC; ++j) slot[pidx(min(perm[i], perm[j]), max(perm[i], perm[j])) * kThreads] = r[pidx(i, j)];
-  }
+  nsd::back_transform(hv, hb, r);
+  nsd::store_permuted<kThreads>(slot, perm, r);
 
-  // 4. c0 and log(tr/C) on the diagonal, sqrt(2) off it; 16-byte stores
-  const float logtr = logf(tr2);
-  float f[kPairs];
-#pragma unroll
-  for (int i = 0; i < kC; ++i) {
-#pragma unroll
-    for (int j = i; j < kC; ++j) {
-      const int q = pidx(i, j);
-      const float v = slot[q * kThreads];
-      f[q] = i == j ? (v + prm.c0) + logtr : v * kSqrt2;
-    }
-  }
-  float4* out = reinterpret_cast<float4*>(feats + m * kPairs);  // 144-byte rows: aligned
-#pragma unroll
-  for (int q = 0; q < kPairs / 4; ++q) out[q] = make_float4(f[4 * q], f[4 * q + 1], f[4 * q + 2], f[4 * q + 3]);
+  // 4. features
+  write_features(slot, prm.c0, logf(tr2), feats + m * kPairs);
 }
 
-__global__ void __launch_bounds__(kChebThreads)
+__global__ void __launch_bounds__(kThreads)
 logcov_feats_cheb_kernel(const float* __restrict__ grams, const float* __restrict__ tr_scaled,
                          const float* __restrict__ wwt, float* __restrict__ feats,
                          unsigned char* __restrict__ flags, long long matrices, int nb,
                          ChebParams prm, const float* __restrict__ coeffs) {
-  const long long m = static_cast<long long>(blockIdx.x) * kChebThreads + threadIdx.x;
+  __shared__ float scratch[kPairs][kThreads];  // one packed matrix a thread
+  const long long m = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (m >= matrices) return;
   const int band = static_cast<int>(m % nb);
 
@@ -427,32 +323,17 @@ logcov_feats_cheb_kernel(const float* __restrict__ grams, const float* __restric
                                    prm.guard, s, trace);
   flags[m] = ok ? 0 : 1;
 
-  // 3. trace-normalised, mapped onto the Chebyshev domain, Clenshaw
+  // 3. the series of the trace-normalised A mapped onto the domain, through
+  // one float64 eigendecomposition of A
   const float tr2 = __fdiv_rn(trace, static_cast<float>(kC));
   const float inv_tr = __fdiv_rn(1.0f, tr2);
-  float t[kPairs];
+  float* slot = scratch[0] + threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < kC; ++i) {
-#pragma unroll
-    for (int j = i; j < kC; ++j) {
-      const float a2 = 2.0f * (s[pidx(i, j)] * inv_tr);
-      t[pidx(i, j)] = (i == j ? a2 - prm.hi_plus_lo : a2) / prm.hi_minus_lo;
-    }
-  }
-  float out[kPairs];
-  nsd::clenshaw_sym8(t, coeffs, prm.degree, out);
+  for (int q = 0; q < kPairs; ++q) slot[q * kThreads] = s[q] * inv_tr;  // A
+  nsd::chebyshev_sym8<kThreads>(slot, coeffs, prm.degree, prm.hi_plus_lo, prm.inv_hi_minus_lo);
 
-  // 4. log(tr/C) on the diagonal, sqrt(2) off it
-  const float logtr = logf(tr2);
-  float* f = feats + m * kPairs;
-#pragma unroll
-  for (int i = 0; i < kC; ++i) {
-#pragma unroll
-    for (int j = i; j < kC; ++j) {
-      const int p = pidx(i, j);
-      f[p] = i == j ? out[p] + logtr : out[p] * kSqrt2;
-    }
-  }
+  // 4. features (c_0 is in the series)
+  write_features(slot, 0.0f, logf(tr2), feats + m * kPairs);
 }
 
 GuardParams guard_params(double scale, double alpha, double lo, double hi, double guard_g) {
@@ -513,13 +394,13 @@ int nsd_logcov_feats_chebyshev(const float* grams, const float* tr_scaled, const
   if (nb < 1 || degree < 0 || degree > kMaxDegree) return static_cast<int>(cudaErrorInvalidValue);
   ChebParams prm;
   prm.guard = guard_params(scale, alpha, lo, hi, guard_g);
-  prm.hi_plus_lo = static_cast<float>(hi + lo);
-  prm.hi_minus_lo = static_cast<float>(hi - lo);
+  prm.hi_plus_lo = hi + lo;
+  prm.inv_hi_minus_lo = 1.0 / (hi - lo);
   prm.degree = degree;
   const long long matrices = static_cast<long long>(batch) * nb;
-  const long long blocks = (matrices + kChebThreads - 1) / kChebThreads;
+  const long long blocks = (matrices + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  logcov_feats_cheb_kernel<<<static_cast<unsigned>(blocks), kChebThreads, 0,
+  logcov_feats_cheb_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       grams, tr_scaled, wwt, feats, flags, matrices, nb, prm, coeffs);
   return static_cast<int>(cudaGetLastError());

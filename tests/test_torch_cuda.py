@@ -28,6 +28,7 @@ from neural_speech_decoding_tpu_torch.ops.kernels import iir as iir_kernels
 from neural_speech_decoding_tpu_torch.ops.kernels import logm as logm_kernels
 from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams, band_grams_plain
 from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats, logcov_feats_plain
+from neural_speech_decoding_tpu_torch.ops import spd
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
 from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
 from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
@@ -401,6 +402,193 @@ def test_logm_clenshaw_kernel_matches_plain(cuda, batch):
     assert got.shape == s.shape and torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 5e-5
     assert torch.equal(got, got.transpose(-1, -2))
+
+
+F64_RATIO = 2.0  # chip_smoke.py's limit on kernel / twin error against float64
+CHEB_CASES = ("identity", "zero_window", "split", "at_lo")
+CHEB_DEGREES = (0, 1, 2, 7, 320)
+
+
+def _edge_matrices(case: str, lo: float) -> np.ndarray:
+    """Four float64 [8, 8] matrices of an edge case of the eigendecomposition
+    route: multiples of the identity (1 down to 5e-14, the shrinkage floor
+    of a zero covariance), two eigenvalues 1e-7 apart (relative), the
+    smallest trace-normalised eigenvalue at 1.001 lo (above the guard's
+    edge). "zero_window" is the unwhitened all-zero window's matrix."""
+    rng = np.random.default_rng(7)
+    q, _ = np.linalg.qr(rng.normal(size=(4, C, C)))
+    lam = rng.uniform(0.3, 3.0, size=(4, C))
+    if case == "identity":
+        return np.stack([c * np.eye(C) for c in (1.0, 3.7, 1e-3, 5e-14)])
+    if case == "zero_window":
+        return np.stack([get_model("logcov8").config.shrinkage * 1e-12 * np.eye(C)] * 4)
+    if case == "split":
+        lam[:, 1] = lam[:, 0] * (1.0 + 1e-7)
+    if case == "at_lo":
+        lam = lam / lam.sum(axis=1, keepdims=True) * C * (1.0 - 1.001 * lo / C)
+        lam[:, 0] = 1.001 * lo
+    return np.einsum("mij,mj,mkj->mik", q, lam, q)
+
+
+def _feature_inputs(s: np.ndarray, dev):
+    """Feature-kernel inputs for one window whose nb bands' shrunk matrices
+    are s [nb, 8, 8]: shrinkage 0 (so the kernel's s is the gram pairs
+    times scale), W W^T = I, the flagship's scale, domain and guard."""
+    cfg = get_model("logcov8", **CHEB_KW).config
+    lo, hi = cfg.cheb_interval
+    scale = 2.0 / (T * T)
+    iu, ju = np.triu_indices(C)
+    grams = torch.from_numpy((s[:, iu, ju] / scale).reshape(1, -1).astype(np.float32)).to(dev)
+    tr_scaled = torch.from_numpy(np.trace(s, axis1=1, axis2=2)[None].astype(np.float32)).to(dev)
+    wwt = torch.from_numpy(np.tile(np.eye(C)[iu, ju], (s.shape[0], 1)).astype(np.float32)).to(dev)
+    scalars = dict(scale=scale, alpha=0.0, lo=lo, hi=hi, guard_g=logcov._guard_strength(cfg), logm="chebyshev")
+    return grams, tr_scaled, wwt, scalars
+
+
+def _cheb_feats_vs_twin(grams, tr_scaled, wwt, coeffs, scalars):
+    """(kernel feats, flags, twin feats, twin flags, float64 feats)."""
+    feats, flags = logcov_feats(grams, tr_scaled, wwt, coeffs, **scalars)
+    want, want_flags = logcov_feats_plain(grams, tr_scaled, wwt, coeffs, **scalars)
+    exact, _ = logcov_feats_plain(grams.double(), tr_scaled.double(), wwt.double(), coeffs, **scalars)
+    torch.cuda.synchronize()
+    return feats, flags, want, want_flags, exact
+
+
+@pytest.mark.parametrize("degree", CHEB_DEGREES)
+@pytest.mark.parametrize("case", CHEB_CASES)
+def test_logcov_feats_chebyshev_kernel_edge_cases(cuda, case, degree):
+    """The feature kernel's eigendecomposition route (Chebyshev mode) on
+    edge cases, the smoke's all-zero window under the cold whitener
+    (guarded) among them, degrees 0 to 320: flags equal, features within
+    5e-5 of each window's max(scale, 1) of the twin and of float64."""
+    lo, hi = get_model("logcov8").config.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, degree)
+    if case == "zero_window":
+        k = _logcov_kernel_inputs(3, cuda, cold=True, logm="chebyshev")
+        grams = band_grams_plain(k.yw, k.offsets)
+        grams[1] = 0.0
+        tr_scaled = k.tr_scaled.clone()
+        tr_scaled[1] = 0.0
+        inputs = (grams, tr_scaled, k.wwt_pairs, k.scalars)
+    else:
+        inputs = _feature_inputs(_edge_matrices(case, lo), cuda)
+    grams, tr_scaled, wwt, scalars = inputs
+    feats, flags, want, want_flags, exact = _cheb_feats_vs_twin(grams, tr_scaled, wwt, coeffs, scalars)
+    assert torch.equal(flags, want_flags)
+    assert torch.isfinite(feats).all()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    assert ((feats - want).abs() / scale).max().item() <= 5e-5
+    assert ((feats.double() - exact).abs() / scale).max().item() <= 5e-5
+
+
+@pytest.mark.parametrize("degree", CHEB_DEGREES)
+@pytest.mark.parametrize("case", CHEB_CASES)
+def test_logm_clenshaw_kernel_edge_cases(cuda, case, degree):
+    """The Clenshaw kernel's eigendecomposition route on the same edge
+    cases and degrees: within 5e-5 of the twin and of float64, exactly
+    symmetric; degree 0 gives c_0 I exactly."""
+    lo, hi = get_model("logcov8").config.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, degree)
+    s64 = torch.from_numpy(_edge_matrices(case, lo)).to(cuda)
+    s = s64.float()
+    got = logm_kernels.logm_spd_chebyshev(s, coeffs, lo, hi)
+    want = logm_kernels.logm_spd_chebyshev_plain(s, coeffs, lo, hi)
+    exact = logm_kernels.logm_spd_chebyshev_plain(s.double(), coeffs, lo, hi)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, got.transpose(-1, -2))
+    assert (got - want).abs().max().item() <= 5e-5
+    assert (got.double() - exact).abs().max().item() <= 5e-5
+    if degree == 0:
+        t, _ = spd.chebyshev_domain_map(s, lo, hi)
+        series = logm_kernels.clenshaw(t, coeffs)
+        assert torch.equal(series, float(np.float32(coeffs[0])) * torch.eye(C, device=cuda).expand_as(series))
+
+
+@pytest.mark.parametrize("matrices", [1, 33, 8197])
+def test_logm_clenshaw_kernel_ragged_count(cuda, matrices):
+    """M not a multiple of the 32-thread block: every matrix within 5e-5
+    of the twin, none left unwritten (the output starts as NaN)."""
+    s, cfg = _band_covariances(-(-matrices // 8), cuda)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    t, _ = spd.chebyshev_domain_map(s, lo, hi)
+    t = t.reshape(-1, C, C)[:matrices].contiguous()
+    lib = logm_kernels._library()
+    out = torch.full_like(t, float("nan"))
+    cbuf = logm_kernels.device_coeffs(tuple(float(c) for c in coeffs), cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert lib.nsd_logm_clenshaw(t.data_ptr(), out.data_ptr(), matrices, cbuf.data_ptr(), len(coeffs) - 1, stream) == 0
+    want = spd.clenshaw(t, coeffs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max().item() <= 5e-5
+    assert torch.equal(logm_kernels.clenshaw(t, coeffs), out)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 1025])
+def test_logcov_feats_chebyshev_kernel_ragged_count(cuda, batch):
+    """B x 8 matrices, not a multiple of the 32-thread block for B = 1, 5
+    and 1025: every feature within the limit of the twin, flags equal."""
+    k = _logcov_kernel_inputs(batch, cuda, cold=True, logm="chebyshev")
+    grams = band_grams_plain(k.yw, k.offsets)
+    feats, flags, want, want_flags, _ = _cheb_feats_vs_twin(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, k.scalars)
+    assert torch.equal(flags, want_flags) and torch.isfinite(feats).all()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    assert ((feats - want).abs() / scale).max().item() <= 5e-5
+
+
+def test_chebyshev_kernels_nan_matrix(cuda):
+    """A NaN entry in one matrix: both kernels end (the QL iteration stops
+    at its cap) and only that matrix's result is non-finite; the rest
+    agree with the twins, and the flags equal the twin's (a NaN band is
+    flagged)."""
+    k = _logcov_kernel_inputs(37, cuda, cold=False, logm="chebyshev")
+    grams = band_grams_plain(k.yw, k.offsets)
+    grams[4, 3 * 36 + 8] = float("nan")  # window 4, band 3, entry (1, 1)
+    feats, flags, want, want_flags, _ = _cheb_feats_vs_twin(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, k.scalars)
+    assert torch.equal(flags, want_flags) and flags[4, 3]
+    bad = ~torch.isfinite(feats.reshape(37, 8, 36))
+    assert bad[4, 3].any() and bad.sum().item() == bad[4, 3].sum().item()
+    ok = torch.isfinite(want)
+    scale = want.nan_to_num(0.0).abs().amax(dim=1, keepdim=True).clamp(min=1.0)
+    assert ((feats - want).abs() / scale)[ok].max().item() <= 5e-5
+
+    s, cfg = _band_covariances(37, cuda)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    s = s.clone()
+    s[6, 2, 3, 3] = float("nan")
+    got = logm_kernels.logm_spd_chebyshev(s, coeffs, lo, hi)
+    want = logm_kernels.logm_spd_chebyshev_plain(s, coeffs, lo, hi)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(got).reshape(-1, 64).all(dim=1)
+    assert not finite[6 * 8 + 2] and finite.sum().item() == finite.numel() - 1
+    assert (got - want).abs().reshape(-1, 64)[finite].max().item() <= 5e-5
+
+
+@pytest.mark.parametrize("batch", [1, 37])
+def test_chebyshev_kernels_float64_ratio(cuda, batch):
+    """Against float64, each Chebyshev kernel errs at most twice as much as
+    its float32 twin: the feature kernel on the cold whitener's inputs
+    (eigenvalues near lo, the guard firing), the Clenshaw kernel on the
+    unwhitened band covariances."""
+    k = _logcov_kernel_inputs(batch, cuda, cold=True, logm="chebyshev")
+    grams = band_grams_plain(k.yw, k.offsets)
+    feats, _, want, _, exact = _cheb_feats_vs_twin(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, k.scalars)
+    k64 = (feats.double() - exact).abs().max().item()
+    p64 = (want.double() - exact).abs().max().item()
+    assert k64 <= F64_RATIO * p64, (k64, p64)
+
+    s, cfg = _band_covariances(batch, cuda)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    got = logm_kernels.logm_spd_chebyshev(s, coeffs, lo, hi)
+    want = logm_kernels.logm_spd_chebyshev_plain(s, coeffs, lo, hi)
+    exact = logm_kernels.logm_spd_chebyshev_plain(s.double(), coeffs, lo, hi)
+    torch.cuda.synchronize()
+    k64 = (got.double() - exact).abs().max().item()
+    p64 = (want.double() - exact).abs().max().item()
+    assert k64 <= F64_RATIO * p64, (k64, p64)
 
 
 def test_iir_cascade_kernel_matches_plain(cuda):

@@ -27,7 +27,7 @@ def test_port_files_exist():
     assert (REPO / "chip_smoke.py").is_file()
     for name in ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats", "logm_clenshaw", "iir_cascade"):
         assert (PORT / "csrc" / f"{name}.cu").is_file()
-    assert (PORT / "csrc" / "clenshaw_sym8.cuh").is_file()
+    assert (PORT / "csrc" / "sym8_eigen.cuh").is_file()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -1,5 +1,5 @@
-"""The algorithms of the port's two redesigned CUDA kernels, walked in numpy
-on the CPU, where no card runs them.
+"""The algorithms of the port's redesigned CUDA kernels, walked in numpy on
+the CPU, where no card runs them.
 
 - Pair sums (csrc/kuramoto_pair_sums.cu): the Hilbert step as the near
   taps in the time domain plus an in-place mixed-radix FFT round trip from
@@ -14,8 +14,15 @@ on the CPU, where no card runs them.
   tridiagonalisation, one O(C^2) shifted tridiagonal inverse a pole,
   back-transformation. In float64 it is spd.logm_rational; in float32 it
   stays within the card limit of the twin.
+- Chebyshev series (csrc/sym8_eigen.cuh, shared by the feature kernel's
+  Chebyshev mode and the Clenshaw kernel): Householder and implicit-shift
+  QL in float64, the scalar series at the eigenvalues, Z diag(p) Z^T and
+  the back-transformation. In float64 it is spd.logm_chebyshev; in the
+  kernels' precisions it stays within the card limit of the twin and
+  within twice the twin's error against float64, edge cases included.
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -24,10 +31,13 @@ import pytest
 import torch
 
 from neural_speech_decoding_tpu.ops.hilbert import _hilbert_transform_matrix as jax_hilbert
+from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
 from neural_speech_decoding_tpu_torch.models import logcov
+from neural_speech_decoding_tpu_torch.models.registry import get_model
 from neural_speech_decoding_tpu_torch.ops import spd
 from neural_speech_decoding_tpu_torch.ops.kernels import kuramoto as ku
 
+REPO = Path(__file__).resolve().parents[1]
 C = 8
 LENGTHS = [1, 2, 97, 256, 625, 1250]
 # T = 77 = 7 x 11: two direct-DFT stages, the last of them unfused;
@@ -278,23 +288,18 @@ def test_float32_walk_against_float64_within_twice_the_twin(t, seed):
 
 
 # ------------------------------------------------------- rational features
-def _tridiagonal_route(s, c0, poles, weights, dtype):
-    """log of the SPD [C, C] s in `dtype` by the kernel's step 3: A = s (1 /
-    (tr s / C)), its channels put in ascending order of the diagonal; 6
-    Householder reflectors (T = Q^T A Q) in float64, T and the reflectors
-    then rounded to `dtype`; for each pole the bottom-up
-    pivots D_i of T - p I, rho_i = -e_{i-1} / D_i, M_jj = 1 / D_j + rho_j^2
-    M_{j-1,j-1}, M_ij = rho_i M_{i-1,j}; Q R Q^T, back in the channels'
-    order; + c0 I; + log(tr / C) I."""
-    f = np.dtype(dtype).type
-    s = s.astype(dtype)
-    tr = s[0, 0]
-    for i in range(1, C):
-        tr = f(tr + s[i, i])
-    tr2 = f(tr / f(C))
-    a = (s * f(f(1.0) / tr2)).astype(dtype)
+def _permuted(a):
+    """The kernels' basis: the channels of the [C, C] a in ascending order
+    of its diagonal, and that order."""
     perm = np.argsort(np.diag(a), kind="stable")
-    a = a[np.ix_(perm, perm)].astype(np.float64)
+    return a[np.ix_(perm, perm)], perm
+
+
+def _householder(a):
+    """csrc/sym8_eigen.cuh tridiagonalize on the float64 [C, C] a: T's
+    diagonal d and off-diagonal e (float64) and the 6 reflectors (v
+    zero-padded to C, beta), float64."""
+    a = a.astype(np.float64)
     hv, hb = [], []
     e = np.zeros(C - 1)
     for k in range(C - 2):
@@ -310,12 +315,39 @@ def _tridiagonal_route(s, c0, poles, weights, dtype):
         p = beta * (blk @ v)
         w = p - 0.5 * beta * (p @ v) * v
         a[k + 1 :, k + 1 :] = blk - np.outer(v, w) - np.outer(w, v)
-        full = np.zeros(C, dtype)
+        full = np.zeros(C)
         full[k + 1 :] = v
         hv.append(full)
-        hb.append(f(beta))
+        hb.append(beta)
     e[C - 2] = a[C - 1, C - 2]
-    d = np.diag(a).astype(dtype)
+    return np.diag(a).copy(), e, hv, hb
+
+
+def _back_transform(r, hv, hb, dtype):
+    """r <- Q r Q^T by the reflectors rounded to `dtype`, in `dtype`."""
+    f = np.dtype(dtype).type
+    for k in range(C - 3, -1, -1):
+        v, beta = hv[k].astype(dtype), f(hb[k])
+        p = (beta * (r @ v)).astype(dtype)
+        w = (p - f(f(0.5) * beta * f(p @ v)) * v).astype(dtype)
+        r = (r - np.outer(v, w) - np.outer(w, v)).astype(dtype)
+    return r
+
+
+def _tridiagonal_route(s, c0, poles, weights, dtype):
+    """log of the SPD [C, C] s in `dtype` by the kernel's step 3: A = s (1 /
+    (tr s / C)), its channels put in ascending order of the diagonal; 6
+    Householder reflectors (T = Q^T A Q) in float64, T and the reflectors
+    then rounded to `dtype`; for each pole the bottom-up
+    pivots D_i of T - p I, rho_i = -e_{i-1} / D_i, M_jj = 1 / D_j + rho_j^2
+    M_{j-1,j-1}, M_ij = rho_i M_{i-1,j}; Q R Q^T, back in the channels'
+    order; + c0 I; + log(tr / C) I."""
+    f = np.dtype(dtype).type
+    s = s.astype(dtype)
+    tr2 = _trace_over_c(s)
+    a, perm = _permuted((s * f(f(1.0) / tr2)).astype(dtype))
+    d, e, hv, hb = _householder(a)
+    d = d.astype(dtype)
     e = e.astype(dtype)
     r = np.zeros((C, C), dtype)
     for pole, weight in zip(poles, weights):
@@ -335,13 +367,18 @@ def _tridiagonal_route(s, c0, poles, weights, dtype):
             for i in range(j + 1, C):
                 m[i, j] = m[j, i] = f(rho[i] * m[i - 1, j])
         r = (r + weight * m).astype(dtype)
-    for k in range(C - 3, -1, -1):
-        v, beta = hv[k], hb[k]
-        p = (beta * (r @ v)).astype(dtype)
-        w = (p - f(f(0.5) * beta * f(p @ v)) * v).astype(dtype)
-        r = (r - np.outer(v, w) - np.outer(w, v)).astype(dtype)
+    r = _back_transform(r, hv, hb, dtype)
     back = np.argsort(perm)
     return r[np.ix_(back, back)] + (f(c0) + np.log(tr2)) * np.eye(C, dtype=dtype)
+
+
+def _trace_over_c(s):
+    """tr(s) / C, the diagonal summed in index order in s's dtype."""
+    f = s.dtype.type
+    tr = s[0, 0]
+    for i in range(1, C):
+        tr = f(tr + s[i, i])
+    return f(tr / f(C))
 
 
 def _flagship_spd(n, seed, cold):
@@ -395,3 +432,256 @@ def test_tridiagonal_route_float32_within_twin(cold, terms):
         assert np.abs(got - exact[m]).max() <= 5e-5
         worst = max(worst, np.abs(got - exact[m]).max())
     assert worst <= 2.0 * np.abs(twin - exact).max()
+
+
+# ------------------------------------------- Chebyshev series (both kernels)
+MAX_SWEEPS = 30  # csrc/sym8_eigen.cuh kMaxSweeps
+
+
+def _ql(d, e, zdtype):
+    """csrc/sym8_eigen.cuh tridiagonal_eigen: the implicit-shift QL
+    iteration (tqli) on the float64 tridiagonal (d, e), the rotations
+    accumulated into Z in `zdtype`; at most MAX_SWEEPS sweeps an
+    eigenvalue. Returns the eigenvalues (in no order), Z and the sweeps."""
+    d = [float(x) for x in d]
+    e = [float(x) for x in e] + [0.0]
+    f = np.dtype(zdtype).type
+    z = np.eye(C, dtype=zdtype)
+    sweeps = 0
+    for l in range(C - 1):
+        for _ in range(MAX_SWEEPS):
+            m = C - 1
+            for j in range(C - 2, l - 1, -1):
+                dd = abs(d[j]) + abs(d[j + 1])
+                if abs(e[j]) + dd == dd:
+                    m = j
+            if m == l:
+                break
+            sweeps += 1
+            g = (d[l + 1] - d[l]) / (2.0 * e[l])
+            r = math.sqrt(g * g + 1.0)
+            g = d[m] - d[l] + e[l] / (g + math.copysign(r, g))
+            s = c = 1.0
+            p = 0.0
+            underflow = False
+            for i in range(C - 2, l - 1, -1):
+                if i >= m or underflow:
+                    continue
+                fi, b = s * e[i], c * e[i]
+                r2 = fi * fi + g * g
+                if r2 == 0.0:
+                    e[i + 1] = 0.0
+                    d[i + 1] -= p
+                    underflow = True
+                    continue
+                inv_r = 1.0 / math.sqrt(r2)
+                e[i + 1] = r2 * inv_r
+                s, c = fi * inv_r, g * inv_r
+                g = d[i + 1] - p
+                r = (d[i] - g) * s + 2.0 * c * b
+                p = s * r
+                d[i + 1] = g + p
+                g = c * r - b
+                zi, zi1 = z[:, i].copy(), z[:, i + 1].copy()
+                z[:, i + 1] = f(s) * zi + f(c) * zi1
+                z[:, i] = f(c) * zi - f(s) * zi1
+            if not underflow:
+                d[l] -= p
+                e[l] = g
+            e[m] = 0.0
+    return np.array(d), z, sweeps
+
+
+def _series(x, coeffs):
+    """csrc/sym8_eigen.cuh chebyshev_series: sum_k c_k T_k(x) at each x by
+    the scalar Clenshaw recurrence, in x's dtype."""
+    f = x.dtype.type
+    b1, b2 = np.zeros_like(x), np.zeros_like(x)
+    for ck in coeffs[:0:-1]:
+        b1, b2 = (f(ck) - b2) + f(2.0) * x * b1, b1
+    return (f(coeffs[0]) - b2) + x * b1
+
+
+def _eigen_route(a, coeffs, shift, scale, mixed):
+    """csrc/sym8_eigen.cuh chebyshev_sym8: sum_k c_k T_k(X), X = (2 A -
+    shift I) scale, of the symmetric [C, C] a: its channels in ascending
+    order of the diagonal, the Householder tridiagonal form and QL in
+    float64, the series at X's eigenvalues in float64, r = Z diag(p - pm)
+    Z^T, Q r Q^T, then pm = (min p + max p) / 2 on the diagonal, back in
+    the channels' order. `mixed`: the kernels' precisions (coefficients,
+    Z, r and the reflectors in float32, the rest in float64); else all
+    float64. (With the series in float32 too, test_eigen_route_edge_cases
+    fails its float64 ratio for an eigenvalue at lo at degree 7.) Returns
+    the result and the QL sweeps."""
+    rdtype = np.float32 if mixed else np.float64
+    cs = np.asarray(coeffs, np.float32 if mixed else np.float64).astype(np.float64)
+    a, perm = _permuted(a)
+    d, e, hv, hb = _householder(a)
+    lam, z, sweeps = _ql(d, e, rdtype)
+    p = _series((2.0 * lam - shift) * scale, cs)
+    pm = 0.5 * (p.min() + p.max())
+    zp = z * (p - pm).astype(rdtype)[None, :]
+    r = _back_transform((zp @ z.T).astype(rdtype), hv, hb, rdtype)
+    r = r + rdtype(pm) * np.eye(C, dtype=rdtype)
+    back = np.argsort(perm)
+    return r[np.ix_(back, back)], sweeps
+
+
+def _features_route(s, coeffs, lo, hi, mixed):
+    """The feature kernel's step 3 in Chebyshev mode: A = s (1 / (tr s /
+    C)) in s's precision, the series of (2 A - (hi + lo) I) / (hi - lo)
+    with the map in float64, + log(tr / C) I."""
+    dtype = np.float32 if mixed else np.float64
+    s = s.astype(dtype)
+    f = np.dtype(dtype).type
+    tr2 = _trace_over_c(s)
+    a = (s * f(f(1.0) / tr2)).astype(dtype)
+    r, sweeps = _eigen_route(a, coeffs, hi + lo, 1.0 / (hi - lo), mixed)
+    return r + np.log(tr2).astype(dtype) * np.eye(C, dtype=dtype), sweeps
+
+
+def _clenshaw_route(s, coeffs, lo, hi, mixed):
+    """The Clenshaw kernel behind its wrapper: t = spd.chebyshev_domain_map
+    of s (plain PyTorch, in s's precision), the series of t (shift 0,
+    scale 1/2), + log(tr / C) I."""
+    dtype = np.float32 if mixed else np.float64
+    t, tr = spd.chebyshev_domain_map(torch.from_numpy(s.astype(dtype)), lo, hi)
+    r, sweeps = _eigen_route(t.numpy(), coeffs, 0.0, 0.5, mixed)
+    return r + np.log(tr.numpy()) * np.eye(C, dtype=dtype), sweeps
+
+
+ROUTES = {"features": _features_route, "clenshaw": _clenshaw_route}
+
+
+def _unwhitened_spd(n):
+    """Unwhitened logcov8 band covariances (the stages path's input to the
+    Clenshaw kernel) of golden filtered windows: in the domain by the
+    shrinkage floor."""
+    cfg = get_model("logcov8").config
+    with np.load(REPO / "tests" / "golden" / "reference_filtered.npz", allow_pickle=False) as zf:
+        x = zf["filtered"][: -(-n // len(cfg.bands))].astype(np.float32)
+    s = logcov.band_covariances(torch.from_numpy(x), cfg).reshape(-1, C, C).numpy()
+    assert s.shape[0] >= n
+    return s[:n].astype(np.float64), *cfg.cheb_interval
+
+
+def _spd_set(name, n, seed):
+    if name == "unwhitened":
+        return _unwhitened_spd(n)
+    return _flagship_spd(n, seed, name == "cold")
+
+
+def _cheb_coeffs(lo, hi, degree=None):
+    return logcov._cheb_log_coeffs(lo, hi, logcov.LogCovConfig().cheb_degree if degree is None else degree)
+
+
+def _scale(x):
+    """Each matrix's max(|x|, 1): the card limit's scale."""
+    return np.maximum(np.abs(x).max(axis=(-2, -1), keepdims=True), 1.0)
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("spd_set", ["warm", "cold", "unwhitened"])
+def test_eigen_route_float64_is_logm_chebyshev(route, spd_set):
+    """float64: the eigendecomposition route = spd.logm_chebyshev (the
+    twins' matrix Clenshaw recurrence) in float64 to 1e-9, degree 320, on
+    the flagship's shrunk matrices and the unwhitened band covariances;
+    every matrix ends within 19 QL sweeps."""
+    s, lo, hi = _spd_set(spd_set, 16, 3)
+    coeffs = _cheb_coeffs(lo, hi)
+    want = spd.logm_chebyshev(torch.from_numpy(s), coeffs, lo, hi).numpy()
+    for m in range(s.shape[0]):
+        got, sweeps = ROUTES[route](s[m], coeffs, lo, hi, mixed=False)
+        assert np.abs(got - want[m]).max() <= 1e-9
+        assert sweeps <= 19
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("spd_set", ["warm", "cold", "unwhitened"])
+def test_eigen_route_mixed_precision_within_twin(route, spd_set):
+    """The kernels' precisions: within 5e-5 of the float32 twin (the card
+    limit), and against float64 at most twice the twin's largest error
+    (the card check's ratio)."""
+    s, lo, hi = _spd_set(spd_set, 24, 11)
+    s32 = s.astype(np.float32)
+    coeffs = _cheb_coeffs(lo, hi)
+    twin = spd.logm_chebyshev(torch.from_numpy(s32), coeffs, lo, hi).numpy()
+    exact = spd.logm_chebyshev(torch.from_numpy(s32.astype(np.float64)), coeffs, lo, hi).numpy()
+    got = np.stack([ROUTES[route](s32[m], coeffs, lo, hi, mixed=True)[0] for m in range(s.shape[0])])
+    assert got.dtype == np.float32
+    assert np.abs(got - twin).max() <= 5e-5
+    assert np.abs(got - exact).max() <= 2.0 * np.abs(twin - exact).max()
+
+
+def _edge_spd(case, route, lo):
+    """Four [C, C] matrices of each edge case, float64."""
+    rng = np.random.default_rng(7)
+    q, _ = np.linalg.qr(rng.normal(size=(4, C, C)))
+    lam = rng.uniform(0.3, 3.0, size=(4, C))
+    if case == "identity":
+        return np.stack([c * np.eye(C) for c in (1.0, 3.7, 1e-3, 1e6)])
+    if case == "zero_window":
+        cfg = logcov.LogCovConfig()
+        if route == "clenshaw":  # the stages path: the shrinkage floor of a zero covariance
+            return np.stack([cfg.shrinkage * 1e-12 * np.eye(C)] * 4)
+        # the feature kernel's: s = a (0 / C + 1e-12) W W^T under the smoke's
+        # whitener (channel 5's gain cut tenfold), then the guard
+        w = load_params_npz(REPO / "checkpoints" / "logcov8wd_ens_s0.npz")["whitener"][:4]
+        w = w * np.where(np.arange(C) == 5, 0.1, 1.0)[None, None, :]
+        wwt = np.einsum("kij,klj->kil", w, w).astype(np.float32)
+        s = cfg.shrinkage * (0.0 / C + 1e-12) * torch.from_numpy(wwt)
+        s, _ = spd.guard_spectrum(s, *cfg.cheb_interval, logcov._guard_strength(cfg))
+        return s.double().numpy()
+    if case == "split":  # two eigenvalues 1e-7 apart (relative)
+        lam[:, 1] = lam[:, 0] * (1.0 + 1e-7)
+    if case == "at_lo":  # trace-normalised, the smallest eigenvalue at lo
+        lam = lam / lam.sum(axis=1, keepdims=True) * C * (1.0 - lo / C)
+        lam[:, 0] = lo
+    return np.einsum("mij,mj,mkj->mik", q, lam, q)
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 7, 320])
+@pytest.mark.parametrize("case", ["identity", "zero_window", "split", "at_lo"])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_eigen_route_edge_cases(route, case, degree):
+    """Multiples of the identity (no reflector, no QL sweep), the smoke's
+    all-zero window after the guard, two eigenvalues 1e-7 apart, an
+    eigenvalue at lo; degrees 0 (c_0 I exactly), 1, 2, 7 and 320. float64:
+    = spd.logm_chebyshev in float64 to 1e-9 of each matrix's max(|log|, 1).
+    Kernel precisions: within 5e-5 of the float32 twin (of each matrix's
+    max(|log|, 1) for the feature kernel, whose map onto the domain is
+    float64 where the twin's is float32: about 1e-4 near lo), and against
+    float64 at most twice the twin's error."""
+    lo, hi = logcov.LogCovConfig().cheb_interval
+    s = _edge_spd(case, route, lo)
+    s32 = s.astype(np.float32)
+    coeffs = _cheb_coeffs(lo, hi, degree)
+    want64 = spd.logm_chebyshev(torch.from_numpy(s), coeffs, lo, hi).numpy()
+    twin = spd.logm_chebyshev(torch.from_numpy(s32), coeffs, lo, hi).numpy()
+    exact = spd.logm_chebyshev(torch.from_numpy(s32.astype(np.float64)), coeffs, lo, hi).numpy()
+    got64 = np.stack([ROUTES[route](m, coeffs, lo, hi, mixed=False)[0] for m in s])
+    got = np.stack([ROUTES[route](m, coeffs, lo, hi, mixed=True)[0] for m in s32])
+    assert np.all((np.abs(got64 - want64) / _scale(want64)) <= 1e-9)
+    limit = 5e-5 * (_scale(twin) if route == "features" else 1.0)
+    assert np.all(np.abs(got - twin) <= limit)
+    assert np.abs(got - exact).max() <= 2.0 * np.abs(twin - exact).max()
+    if degree == 0:
+        np.testing.assert_array_equal(got - np.diagonal(got, axis1=1, axis2=2)[:, :, None] * np.eye(C),
+                                      np.zeros_like(got))
+
+
+def test_eigen_route_nan_ends_in_bounded_sweeps():
+    """A NaN entry is never negligible: its QL runs to the cap (7 x 30
+    sweeps) and ends, with a non-finite result."""
+    lo, hi = logcov.LogCovConfig().cheb_interval
+    s = _edge_spd("split", "features", lo)[0].astype(np.float32)
+    s[3, 3] = np.nan
+    got, sweeps = _features_route(s, _cheb_coeffs(lo, hi, 7), lo, hi, mixed=True)
+    assert sweeps == (C - 1) * MAX_SWEEPS
+    assert not np.isfinite(got).any()
+
+
+def test_sweep_cap_matches_the_kernel_source():
+    source = (Path(__file__).resolve().parents[1] / "neural_speech_decoding_tpu_torch" / "csrc"
+              / "sym8_eigen.cuh").read_text()
+    assert f"constexpr int kMaxSweeps = {MAX_SWEEPS};" in source
