@@ -26,7 +26,12 @@ of the checkout. One line per phase, each with its elapsed seconds:
      route, which computes the exact log), both no more than twice the
      twin's distance from float64, with their registers and spills from
      the build log, and the zero-phase IIR cascade (also against scipy in
-     float64; its twin, a loop over T, timed once)
+     float64, no more than twice the twin's distance from it; its twin, a
+     loop over T, timed once; at the timed batches its launch plan, the
+     registers and spills of the instantiation the plan runs, the time of
+     both its launch shapes (staged in shared memory, and in global
+     memory), and the staged shape with its bulk and its plain copy; both
+     shapes also timed at more batches either side of the plan's switch)
   4. the LSTM path: InferenceEngine.predict_batch on 1024 synthetic raw
      windows, with the kernels' launch counts set to 0 just before and read
      just after; then 16 of those windows against the same engine on the
@@ -116,6 +121,7 @@ RUN_TRIALS_DEADLINE_S = 120
 BATCHES = (1, 37, 1024, 16384)  # the kernel checks' batch sizes
 OTHER_T = (97, 1250)  # other window lengths of the pair-sums check
 TIMED = (1024, 16384)  # those also timed; the report's times are at the last
+IIR_SHAPE_BATCHES = (2048, 3072, 6144, 32768)  # the IIR cascade's two shapes also timed at these
 
 _T0 = time.perf_counter()
 
@@ -483,18 +489,33 @@ def check_clenshaw(dev, build_log):
     return err_abs, times
 
 
-def check_iir(dev):
+def check_iir(dev, build_log):
     """Phase 3c: the zero-phase IIR cascade on detrended board-like windows
-    against its twin (timed once: a loop over T) and scipy in float64.
-    Returns (max abs err, {B: times})."""
+    against its twin (timed once: a loop over T) and scipy in float64, at
+    most F64_RATIO times the twin's distance from float64; at the timed
+    batches the launch plan, the registers and spills of the instantiation
+    it runs, the time of both launch shapes (staged in shared memory at
+    G = 2, in global memory at G = 1; each also against the twin), and the
+    staged shape's bulk copy against its plain copy; then both shapes at
+    IIR_SHAPE_BATCHES, either side of the plan's switch. Returns (max abs
+    err, {B: times})."""
     from neural_speech_decoding_tpu_torch.ops.kernels.iir import (
+        STAGED_LANES,
+        _launch,
+        _shape,
+        card_limits,
         collector_stages,
         iir_cascade,
         iir_cascade_plain,
+        launch_plan,
+        slots,
         stack_sos,
     )
 
     sos = stack_sos(collector_stages())
+    sections = sos.shape[0]
+    limits = card_limits(dev)
+    phase(f"iir cascade: card limits (SMs, opt-in shared memory a block) {limits}")
     err_abs, times = 0.0, {}
     for b in BATCHES:
         x = torch.from_numpy(synthetic_windows(b, seed=b + 3)).to(dev)
@@ -515,18 +536,67 @@ def check_iir(dev):
         if not (torch.isfinite(got).all() and err <= IIR_TWIN_TOL and k_ref <= IIR_SCIPY_TOL):
             raise AssertionError(f"iir B={b}: err {err} of scale vs twin (tol {IIR_TWIN_TOL}), "
                                  f"{k_ref} vs scipy float64 (tol {IIR_SCIPY_TOL})")
+        if not k_ref <= F64_RATIO * p_ref:
+            raise AssertionError(f"iir B={b}: {k_ref / p_ref:.2f}x the twin's error against float64 > {F64_RATIO}")
         err_abs = max(err_abs, diff.max().item())
-        line = (f"iir cascade B={b} ({sos.shape[0]} sections): max err {err:.3e} of each window's scale "
+        line = (f"iir cascade B={b} ({sections} sections): max err {err:.3e} of each window's scale "
                 f"vs the twin (tol {IIR_TWIN_TOL}), max abs {diff.max().item():.3e}; vs scipy float64: "
-                f"kernel {k_ref:.3e}, twin {p_ref:.3e} (tol {IIR_SCIPY_TOL})")
+                f"kernel {k_ref:.3e}, twin {p_ref:.3e} (kernel / twin {k_ref / p_ref:.2f}, limit {F64_RATIO}; "
+                f"tol {IIR_SCIPY_TOL})")
         if b in TIMED:
-            k_ms = cuda_ms(lambda: iir_cascade(x, sos), 10)
+            plan = launch_plan(b, T, C, sections, *limits)
+            k = slots(sections, plan.lanes)
+            by_shape = []  # both shapes, each against the twin; also the card's warm-up
+            for staged, g in ((True, STAGED_LANES), (False, 1)):
+                shape = _shape(staged, g, b, T, C, sections, limits[1])
+                got_s = _launch(x, sos, shape)
+                err_s = ((got_s - want).abs() / norm).max().item()
+                if not err_s <= IIR_TWIN_TOL:
+                    raise AssertionError(f"iir B={b} staged={staged}: err {err_s} of scale vs twin "
+                                         f"(tol {IIR_TWIN_TOL})")
+                by_shape.append(f"{'staged' if staged else 'global'} G={g} W={shape.windows} "
+                                f"{cuda_ms(lambda: _launch(x, sos, shape), 20):.4f} ms"
+                                f"{'' if torch.equal(got_s, got) else ' (not bit-equal to the plan)'}")
+                del got_s
+            k_ms = cuda_ms(lambda: iir_cascade(x, sos), 20)
             p_ms = start.elapsed_time(end)  # the twin, timed once
-            bound, by = iir_bound_ms(b, sos.shape[0])
+            bound, by = iir_bound_ms(b, sections)
             times[b] = (k_ms, p_ms, bound, by, None)
             line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms (once), bound {bound:.4f} ms ({by})"
-        phase(line)
+            phase(line)
+            phase(f"iir cascade B={b} plan: G={plan.lanes} lanes a series, K={k} sections a lane, "
+                  f"W={plan.windows} windows a block, {plan.blocks} blocks of {plan.threads} threads, "
+                  f"{plan.shared_bytes} B shared memory a block (staged {plan.staged}); "
+                  f"{kernel_resources(build_log, f'iir_cascade_kernelILi{k}ELb{int(plan.staged)}E')}")
+            phase(f"iir cascade B={b} by shape: " + "; ".join(by_shape))
+            # the staged shape's two copies: bulk (aligned x) and plain (x 4 bytes off 16-byte alignment)
+            staged = _shape(True, STAGED_LANES, b, T, C, sections, limits[1])
+            flat = torch.empty(x.numel() + 1, device=dev)
+            flat[1:] = x.reshape(-1)
+            shifted = flat[1:].view(x.shape)
+            if not torch.equal(_launch(shifted, sos, staged), _launch(x, sos, staged)):
+                raise AssertionError(f"iir B={b}: the plain copy's result differs from the bulk copy's")
+            copy_ms = [cuda_ms(lambda: _launch(v, sos, staged), 20) for v in (x, shifted, shifted, x)]
+            phase(f"iir cascade B={b} staged copy: bulk {copy_ms[0]:.4f}, {copy_ms[3]:.4f} ms; plain "
+                  f"(input 4 bytes off 16-byte alignment) {copy_ms[1]:.4f}, {copy_ms[2]:.4f} ms")
+            del flat, shifted
+        else:
+            phase(line)
         del x, got, want, ref
+    sweep = []  # both shapes either side of the plan's switch, bit-equal to each other
+    for b in IIR_SHAPE_BATCHES:
+        x = 30.0 * torch.randn(b, T, C, device=dev, generator=torch.Generator(dev).manual_seed(b))
+        outs, cells = [], []
+        for staged, g in ((True, STAGED_LANES), (False, 1)):
+            shape = _shape(staged, g, b, T, C, sections, limits[1])
+            outs.append(_launch(x, sos, shape))
+            cells.append(f"{'staged' if staged else 'global'} {cuda_ms(lambda: _launch(x, sos, shape), 20):.4f} ms")
+        if not torch.equal(*outs):
+            raise AssertionError(f"iir B={b}: the two shapes' results differ")
+        picked = "staged" if launch_plan(b, T, C, sections, *limits).staged else "global"
+        sweep.append(f"B={b}: {', '.join(cells)} (plan: {picked})")
+        del x, outs
+    phase("iir cascade shapes either side of the plan's switch: " + "; ".join(sweep))
     return err_abs, times
 
 
@@ -747,7 +817,7 @@ def main() -> int:
     # 3c. the slice-3 kernels against their twins
     cheb_err, cheb_times = check_chebyshev_feats(dev, logs.get("logcov_feats"))
     logm_err, logm_times = check_clenshaw(dev, logs.get("logm_clenshaw"))
-    iir_err, iir_times = check_iir(dev)
+    iir_err, iir_times = check_iir(dev, logs.get("iir_cascade"))
 
     # 4. the main path
     engine = InferenceEngine(model_path=str(CHECKPOINT))

@@ -11,14 +11,18 @@ z-score are plain PyTorch, as the JAX wrapper leaves them to XLA; the
 cascade is the kernel's (csrc/iir_cascade.cu, plain nvcc, ctypes) for a
 CUDA tensor, and the plain twin's, a PyTorch loop over T, for a CPU tensor
 and as the kernel's test oracle on the card. The TPU tiling knobs
-block_n and block_t have no meaning here and are not carried over.
+block_n and block_t have no meaning here and are not carried over; the
+kernel's own launch shape (lanes a series, windows a block, shared memory
+or not) comes from `launch_plan`, from the batch and the card's SM count
+and shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+import math
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,25 +76,136 @@ def iir_cascade_plain(x_btc: torch.Tensor, sos: np.ndarray) -> torch.Tensor:
     return y
 
 
+# The kernel's own limits (csrc/iir_cascade.cu: kMaxSections, kMaxSlots,
+# kSlotCounts, kMaxLanes, kMaxThreads): S sections, G a power of two up to
+# 16 (a group of lanes never straddles a warp), K slots a lane, the
+# smallest of SLOT_COUNTS that holds ceil(S / G) sections.
+MAX_SECTIONS = 32
+MAX_SLOTS = 16
+SLOT_COUNTS = (1, 2, 4, 7, 8, 14, 16)
+MAX_LANES = 16
+MAX_THREADS = 256
+WARP = 32
+STATIC_SMEM = 16  # the kernel's own shared memory: its mbarrier and sink word
+# The two launch shapes. Staged: G = 2 lanes a series, whole windows in
+# shared memory. In global memory: G = 1 (2 past 16 sections), 256 series
+# a block. At T = 625, C = 8 and 14 sections on an H100 the staged shape
+# is the faster at B = 1024 and 2048 (124 series an SM), the other at
+# B = 3072 (186 an SM) and 16384 (chip_smoke.py phase 3c; PERF.md,
+# section 6), hence the switch at 128 series an SM. A window over a
+# block's shared memory always runs in global memory.
+STAGED_LANES = 2
+GLOBAL_MIN_SERIES_PER_SM = 128
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel is launched: `lanes` (G) threads a series,
+    `block_series` series a block (`windows` whole windows of them when
+    `staged` in `shared_bytes` of shared memory; 0 otherwise)."""
+
+    lanes: int
+    windows: int
+    block_series: int
+    blocks: int
+    threads: int
+    shared_bytes: int
+    staged: bool
+
+
+def slots(sections: int, lanes: int) -> int:
+    """K, the slots a lane holds: the kernel's instantiation that runs
+    `sections` sections over `lanes` lanes."""
+    if lanes not in (1, 2, 4, 8, 16) or max(1, -(-sections // lanes)) > MAX_SLOTS:
+        raise ValueError(f"lanes must be a power of two up to {MAX_LANES} that leaves at most {MAX_SLOTS} "
+                         f"of the {sections} sections a lane, got {lanes}")
+    return next(k for k in SLOT_COUNTS if k >= -(-sections // lanes))
+
+
+def _shape(staged: bool, lanes: int, batch: int, t_len: int, channels: int, sections: int,
+           smem_per_block: int) -> LaunchPlan:
+    """The launch in one of the two shapes at G = `lanes`; staged: W the
+    fewest whole windows that fill whole warps, within the block's limits."""
+    slots(sections, lanes)
+    window_bytes = 4 * t_len * channels
+    if staged:
+        if channels * lanes > MAX_THREADS or window_bytes + STATIC_SMEM > smem_per_block:
+            raise ValueError(f"a window [{t_len}, {channels}] at {lanes} lanes a series does not fit one block")
+        windows = WARP // math.gcd(WARP, channels * lanes)
+        windows = max(1, min(windows, MAX_THREADS // (channels * lanes),
+                             (smem_per_block - STATIC_SMEM) // window_bytes, batch))
+        block_series, shared = windows * channels, windows * window_bytes
+    else:
+        windows, shared = 0, 0
+        block_series = min(MAX_THREADS // lanes, batch * channels)
+    threads = -(-block_series * lanes // WARP) * WARP
+    blocks = -(-batch * channels // block_series)
+    return LaunchPlan(lanes, windows, block_series, blocks, threads, shared, staged)
+
+
+def launch_plan(batch: int, t_len: int, channels: int, sections: int, sms: int, smem_per_block: int) -> LaunchPlan:
+    """The launch of `batch` windows [t_len, channels] through `sections`
+    sections on a card of `sms` SMs and `smem_per_block` bytes of (opt-in)
+    shared memory a block: staged while the card has fewer than
+    GLOBAL_MIN_SERIES_PER_SM series an SM and a window fits a block, else
+    in global memory."""
+    if not 0 <= sections <= MAX_SECTIONS:
+        raise ValueError(f"{sections} sections exceed the kernel's limit of {MAX_SECTIONS}")
+    fits = channels * STAGED_LANES <= MAX_THREADS and 4 * t_len * channels + STATIC_SMEM <= smem_per_block
+    if fits and batch * channels < GLOBAL_MIN_SERIES_PER_SM * sms:
+        return _shape(True, STAGED_LANES, batch, t_len, channels, sections, smem_per_block)
+    return _shape(False, 1 if sections <= MAX_SLOTS else 2, batch, t_len, channels, sections, smem_per_block)
+
+
+def card_limits(device: torch.device) -> Tuple[int, int]:
+    """(SMs, opt-in shared memory a block in bytes) of a CUDA card."""
+    return _card_limits(torch.device(device).index or 0)
+
+
+@functools.cache  # on every launch's host path; a card's limits never change
+def _card_limits(index: int) -> Tuple[int, int]:
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = build.load(NAME)
     lib.nsd_iir_cascade.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.nsd_iir_cascade.restype = ctypes.c_int
-    lib.nsd_iir_cascade_max_sections.argtypes = []
-    lib.nsd_iir_cascade_max_sections.restype = ctypes.c_int
     lib.nsd_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nsd_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _launch(x: torch.Tensor, sos: np.ndarray, plan: LaunchPlan) -> torch.Tensor:
+    """One launch of the kernel on contiguous CUDA windows x, with `plan`
+    (counted)."""
+    lib = _library()
+    out = torch.empty_like(x)
+    b, t, c = x.shape
+    sbuf = np.ascontiguousarray(sos, dtype=np.float64)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.nsd_iir_cascade(
+            x.data_ptr(), out.data_ptr(), b, t, c,
+            sbuf.ctypes.data, sbuf.shape[0],
+            plan.lanes, plan.block_series, int(plan.staged), stream,
+        )
+    if err != 0:
+        msg = lib.nsd_cuda_error_string(err).decode()
+        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} ({msg})")
+    kernels.count_launch(NAME)
+    return out
+
+
 def iir_cascade(x_btc: torch.Tensor, sos: np.ndarray) -> torch.Tensor:
     """[B, T, C] float32 -> the stacked cascade forward then reversed,
     [B, T, C] float32. Launches the CUDA kernel for a CUDA tensor (and
-    counts the launch); takes the plain twin for a CPU tensor."""
+    counts the launch), with `launch_plan`'s shape; takes the plain twin
+    for a CPU tensor."""
     if not isinstance(x_btc, torch.Tensor):
         raise TypeError(f"expected a torch.Tensor, got {type(x_btc).__name__}")
     if x_btc.device.type not in ("cpu", "cuda"):
@@ -104,26 +219,13 @@ def iir_cascade(x_btc: torch.Tensor, sos: np.ndarray) -> torch.Tensor:
         raise ValueError(f"sos must be [S, 6], got {sos.shape}")
     if x_btc.device.type == "cpu":
         return iir_cascade_plain(x_btc, sos)
-    lib = _library()
-    if sos.shape[0] > lib.nsd_iir_cascade_max_sections():
-        raise ValueError(f"{sos.shape[0]} sections exceed the kernel's limit of {lib.nsd_iir_cascade_max_sections()}")
+    if sos.shape[0] > MAX_SECTIONS:
+        raise ValueError(f"{sos.shape[0]} sections exceed the kernel's limit of {MAX_SECTIONS}")
     x = x_btc.contiguous()
-    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return torch.empty_like(x)
     b, t, c = x.shape
-    if out.numel() == 0:
-        return out
-    sbuf = np.ascontiguousarray(sos)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.nsd_iir_cascade(
-            x.data_ptr(), out.data_ptr(), b, t, c,
-            sbuf.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), sbuf.shape[0], stream,
-        )
-    if err != 0:
-        msg = lib.nsd_cuda_error_string(err).decode()
-        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} ({msg})")
-    kernels.count_launch(NAME)
-    return out
+    return _launch(x, sos, launch_plan(b, t, c, sos.shape[0], *card_limits(x.device)))
 
 
 def fused_preprocess(

@@ -9,6 +9,7 @@ Elsewhere every test skips.
 """
 
 import dataclasses
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -609,6 +610,168 @@ def test_iir_cascade_kernel_matches_plain(cuda):
     assert ((got.double() - exact).abs() / scale).max().item() <= 1e-4
     out = iir_kernels.fused_preprocess(x, iir_kernels.collector_stages(), zscore=True)
     assert out.device.type == "cuda" and torch.isfinite(out).all()
+
+
+IIR_TWIN_TOL = 3e-5  # chip_smoke.py's limit, of each window's max |twin|
+IIR_SOS = iir_kernels.stack_sos(iir_kernels.collector_stages())  # 14 sections
+IIR_LANES = (1, 2, 4, 8, 16)  # every G the kernel takes
+# The plan's own shape (None), and each G forced in each shape (staged or not)
+IIR_SHAPES = [(None, None), *[(g, True) for g in IIR_LANES], *[(g, False) for g in IIR_LANES]]
+
+
+def _iir_sos(sections: int) -> np.ndarray:
+    """`sections` stable sections: the collector's 14, repeated."""
+    return np.ascontiguousarray(np.concatenate([IIR_SOS] * 3)[:sections])
+
+
+def _iir_windows(batch: int, t_len: int, channels: int, seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((batch, t_len, channels)) * 40.0).astype(np.float32)).to(dev)
+    return x - x.mean(dim=1, keepdim=True)
+
+
+def _iir_run(x, sos, lanes=None, staged=None):
+    """The kernel once: the wrapper's plan (lanes None), or G = `lanes` in
+    the staged or the global-memory shape."""
+    if lanes is None:
+        return iir_kernels.iir_cascade(x, sos)
+    b, t, c = x.shape
+    smem = iir_kernels.card_limits(x.device)[1]
+    return iir_kernels._launch(x, sos, iir_kernels._shape(staged, lanes, b, t, c, sos.shape[0], smem))
+
+
+def _iir_twins(x, sos, twin_device=None):
+    """The twin and the float64 twin (the scipy composite) of x."""
+    xt = x if twin_device is None else x.to(twin_device)
+    return (iir_kernels.iir_cascade_plain(xt, sos).to(x.device),
+            iir_kernels.iir_cascade_plain(xt.double(), sos).to(x.device))
+
+
+@functools.lru_cache(maxsize=8)
+def _iir_case(batch: int, sections: int):
+    """Windows [batch, T, C] on the card and their two twins, made once for
+    the tests that force each shape on them."""
+    x = _iir_windows(batch, T, C, batch + sections, torch.device("cuda"))
+    sos = _iir_sos(sections)
+    return (x, sos, *_iir_twins(x, sos))
+
+
+def _iir_check(x, sos, lanes=None, staged=None, twins=None, twin_device=None):
+    """The kernel once (one launch counted) against the twin and the
+    float64 twin: within IIR_TWIN_TOL of each window's scale of the twin,
+    and at most F64_RATIO times the twin's error against float64."""
+    before = kernels.launches()["iir_cascade"]
+    got = _iir_run(x, sos, lanes, staged)
+    torch.cuda.synchronize()
+    assert kernels.launches()["iir_cascade"] == before + 1
+    want, exact = twins or _iir_twins(x, sos, twin_device)
+    scale = exact.abs().amax(dim=(1, 2), keepdim=True)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() / scale).max().item() <= IIR_TWIN_TOL
+    k64 = ((got.double() - exact).abs() / scale).max().item()
+    p64 = ((want.double() - exact).abs() / scale).max().item()
+    assert k64 <= F64_RATIO * p64, (k64, p64)
+    return got
+
+
+@pytest.mark.parametrize("lanes, staged", IIR_SHAPES)
+@pytest.mark.parametrize("batch", [37, 1024, 3072])
+def test_iir_cascade_kernel_each_lane_count(cuda, batch, lanes, staged):
+    """Every G in both shapes, the collector's 14 sections; the plan's own
+    (None) is staged at G = 2 at B = 37 and 1024 and in global memory at
+    G = 1 at B = 3072 on an H100."""
+    x, sos, want, exact = _iir_case(batch, 14)
+    _iir_check(x, sos, lanes, staged, (want, exact))
+
+
+@pytest.mark.parametrize("lanes, staged", IIR_SHAPES)
+@pytest.mark.parametrize("sections", [1, 5, 32])
+def test_iir_cascade_kernel_section_counts(cuda, sections, lanes, staged):
+    """S = 1 (every G but 1 pads with identity slots), S = 5 (K = 7 slots
+    at G = 1, 4 at G = 2: identity slots past ceil(S / G)) and S = 32
+    (G = 1 would hold 32 sections a lane, over the kernel's 16: refused;
+    the plan takes G = 2 for it in global memory)."""
+    x, sos, want, exact = _iir_case(37, sections)
+    if lanes is not None and -(-sections // lanes) > iir_kernels.MAX_SLOTS:
+        with pytest.raises(ValueError, match="lanes"):
+            _iir_run(x, sos, lanes, staged)
+        return
+    _iir_check(x, sos, lanes, staged, (want, exact))
+
+
+def test_iir_cascade_kernel_refuses_33_sections(cuda):
+    x = _iir_windows(2, T, C, 0, cuda)
+    with pytest.raises(ValueError, match="limit"):
+        iir_kernels.iir_cascade(x, np.concatenate([IIR_SOS] * 3)[:33])
+
+
+@pytest.mark.parametrize("lanes", [None, 2, 8])
+def test_iir_cascade_kernel_partial_block(cuda, lanes):
+    """C = 5, B = 5, T = 97: blocks of W windows (W = 4 at G = 8) leave the
+    last one partly empty, and a 485-float tile is no multiple of 16
+    bytes, so the plain copy stages it."""
+    x = _iir_windows(5, 97, 5, 3, cuda)
+    assert iir_kernels.launch_plan(5, 97, 5, 14, *iir_kernels.card_limits(x.device)).staged
+    _iir_check(x, IIR_SOS, lanes, True)
+
+
+def test_iir_cascade_kernel_unaligned_input(cuda):
+    """x 4 bytes past a 16-byte boundary: no bulk copy; the plain copy
+    stages it."""
+    x = _iir_windows(37, T, C, 5, cuda)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    flat[1:] = x.reshape(-1)
+    shifted = flat[1:].view(x.shape)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(_iir_check(shifted, IIR_SOS), _iir_check(x, IIR_SOS), rtol=0, atol=0)
+
+
+def test_iir_cascade_kernel_past_shared_memory(cuda):
+    """B = 1, T = 20000: a 640 KB window, over one block's shared memory,
+    runs the lane pipeline in place in global memory. The twins run on the
+    CPU (a loop over 20000 samples); 4 sections keep them short."""
+    x = _iir_windows(1, 20000, C, 7, cuda)
+    sos = _iir_sos(4)
+    plan = iir_kernels.launch_plan(1, 20000, C, 4, *iir_kernels.card_limits(x.device))
+    assert not plan.staged
+    _iir_check(x, sos, twin_device="cpu")
+
+
+@pytest.mark.parametrize("past", [0, 1])
+def test_iir_cascade_kernel_at_the_edge_of_shared_memory(cuda, past):
+    """The longest window at C = 8 whose tile and the kernel's own
+    STATIC_SMEM bytes fit a block's opt-in shared memory (T = 7263 on an
+    H100) stages; one sample more runs in global memory, and the kernel
+    entry refuses that tile staged."""
+    smem = iir_kernels.card_limits(cuda)[1]
+    t_len = (smem - iir_kernels.STATIC_SMEM) // (4 * C) + past
+    x = _iir_windows(1, t_len, C, 13, cuda)
+    sos = _iir_sos(4)
+    assert iir_kernels.launch_plan(1, t_len, C, 4, *iir_kernels.card_limits(cuda)).staged == (past == 0)
+    _iir_check(x, sos, twin_device="cpu")
+    if past:
+        forced = iir_kernels.LaunchPlan(lanes=2, windows=1, block_series=C, blocks=1, threads=32,
+                                        shared_bytes=4 * t_len * C, staged=True)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            iir_kernels._launch(x, sos, forced)
+
+
+@pytest.mark.parametrize("lanes, staged", [(None, None), (1, False), (16, True)])
+def test_iir_cascade_kernel_nan_series(cuda, lanes, staged):
+    """A NaN in one series makes that series NaN, as in the twin; its
+    neighbours, in the same block and the same warp, stay finite and
+    within the limit of the twin."""
+    x = _iir_windows(37, T, C, 9, cuda)
+    x[5, 300, 3] = float("nan")
+    got = _iir_run(x, IIR_SOS, lanes, staged)
+    want = iir_kernels.iir_cascade_plain(x, IIR_SOS)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[5, :, 3]).all() and torch.isnan(want[5, :, 3]).all()
+    keep = torch.ones_like(got, dtype=torch.bool)
+    keep[5, :, 3] = False
+    assert torch.isfinite(got[keep]).all()
+    scale = want.nan_to_num(0.0).abs().amax(dim=(1, 2), keepdim=True).expand_as(want)
+    assert ((got - want).abs()[keep] / scale[keep]).max().item() <= IIR_TWIN_TOL
 
 
 def test_chebyshev_launch_counts(cuda):

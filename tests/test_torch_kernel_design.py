@@ -20,8 +20,17 @@ the CPU, where no card runs them.
   the back-transformation. In float64 it is spd.logm_chebyshev; in the
   kernels' precisions it stays within the card limit of the twin and
   within twice the twin's error against float64, edge cases included.
+- IIR cascade (csrc/iir_cascade.cu): the lane pipeline (G lanes a series,
+  K sections a lane, each section one step behind the one before it,
+  identity slots past the last section, lane 0 reading a chunk ahead, the
+  last lane writing in place, the reverse pass walking the same buffer
+  from its end) in float32 with separate products and sums, bit-equal to
+  the CPU twin; the launch plan's rule at the main path's batches and at
+  the edge of a block's shared memory on an H100, and the staged shapes'
+  shared-memory reads free of bank conflicts.
 """
 
+import functools
 import math
 import re
 from pathlib import Path
@@ -35,6 +44,7 @@ from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
 from neural_speech_decoding_tpu_torch.models import logcov
 from neural_speech_decoding_tpu_torch.models.registry import get_model
 from neural_speech_decoding_tpu_torch.ops import spd
+from neural_speech_decoding_tpu_torch.ops.kernels import iir
 from neural_speech_decoding_tpu_torch.ops.kernels import kuramoto as ku
 
 REPO = Path(__file__).resolve().parents[1]
@@ -685,3 +695,167 @@ def test_sweep_cap_matches_the_kernel_source():
     source = (Path(__file__).resolve().parents[1] / "neural_speech_decoding_tpu_torch" / "csrc"
               / "sym8_eigen.cuh").read_text()
     assert f"constexpr int kMaxSweeps = {MAX_SWEEPS};" in source
+
+
+# ------------------------------------------------------------- IIR cascade
+IIR_SOURCE = (REPO / "neural_speech_decoding_tpu_torch" / "csrc" / "iir_cascade.cu").read_text()
+READ_AHEAD = int(re.search(r"constexpr int kReadAhead = (\d+);", IIR_SOURCE).group(1))
+# H100 80GB HBM3: SMs and opt-in shared memory a block, as
+# torch.cuda.get_device_properties reads them (chip_smoke.py phase 3c prints them)
+H100 = (132, 232448)
+LANES = (1, 2, 4, 8, 16)  # every G the kernel takes
+IIR_SOS = iir.stack_sos(iir.collector_stages())  # the collector's 14 sections
+
+
+def _iir_sos(sections):
+    return np.ascontiguousarray(np.concatenate([IIR_SOS] * 3)[:sections])
+
+
+def _lane_pipeline(series, sos, lanes, k):
+    """One launch's arithmetic on series [n, T] float32, the kernel's
+    schedule step by step with K = k slots a lane: slot j of lane g holds
+    section g K + j (identity past the last) and at step i runs it on
+    sample i - (g K + j); the
+    samples of a chunk of READ_AHEAD steps are read at the end of the chunk
+    two before it (past the series: the pass's first sample), the last
+    lane writes in place depth = G K - 1 steps behind. Products and sums
+    rounded one by one, as the CPU twin computes them."""
+    n, t_len = series.shape
+    s_count = sos.shape[0]
+    coef = np.tile(np.array([1, 0, 0, 0, 0], np.float32), (lanes * k, 1))
+    coef[:s_count] = sos[:, [0, 1, 2, 4, 5]].astype(np.float32)
+    b0, b1, b2, a1, a2 = (coef[:, q].reshape(lanes, k) for q in range(5))
+    buf = series.copy()  # the tile: both passes in place
+    depth = lanes * k - 1
+    steps = t_len + depth
+    for reverse in (False, True):
+        at = (lambda i: t_len - 1 - i) if reverse else (lambda i: i)
+        o, z0, z1 = (np.zeros((n, lanes, k), np.float32) for _ in range(3))
+        ahead = [[buf[:, at(u)].copy() if u < t_len else np.zeros(n, np.float32) for u in range(q, q + READ_AHEAD)]
+                 for q in (0, READ_AHEAD)]
+        for i0 in range(0, steps, READ_AHEAD):
+            cur = ahead.pop(0)
+            for u in range(READ_AHEAD):
+                y = np.roll(o[:, :, k - 1], 1, axis=1)  # __shfl_up_sync: lane g takes lane g - 1's
+                y[:, 0] = cur[u]  # the head takes its sample
+                inp = np.concatenate([y[:, :, None], o[:, :, :-1]], axis=2)  # slot j takes slot j - 1's
+                o = b0 * inp + z0
+                z0 = b1 * inp - a1 * o + z1
+                z1 = b2 * inp - a2 * o
+                p = i0 + u - depth
+                if 0 <= p < t_len:
+                    buf[:, at(p)] = o[:, lanes - 1, k - 1]
+            ahead.append([buf[:, at(i if i < t_len else 0)].copy()
+                          for i in range(i0 + 2 * READ_AHEAD, i0 + 3 * READ_AHEAD)])
+    return buf
+
+
+def _iir_kernel_walk(x_btc, sos, lanes, k, windows):
+    """The launch over x [B, T, C]: blocks of `windows` whole windows, the
+    last padded with NaN windows that no result is taken from, every
+    (window, channel) series through the lane pipeline."""
+    b, t_len, c = x_btc.shape
+    blocks = -(-b // windows)
+    tiles = np.full((blocks * windows, t_len, c), np.nan, np.float32)
+    tiles[:b] = x_btc
+    out = _lane_pipeline(tiles.transpose(0, 2, 1).reshape(-1, t_len), sos, lanes, k)
+    return out.reshape(blocks * windows, c, t_len).transpose(0, 2, 1)[:b]
+
+
+@functools.lru_cache(maxsize=None)
+def _iir_case(sections, t_len):
+    """Detrended windows [3, t_len, 5], one NaN series, and the CPU twin's
+    cascade of them."""
+    rng = np.random.default_rng(sections * 1000 + t_len)
+    x = (rng.standard_normal((3, t_len, 5)) * 40.0).astype(np.float32)
+    x = (x - x.mean(axis=1, keepdims=True)).astype(np.float32)
+    x[1, t_len // 2, 2] = np.nan
+    twin = iir.iir_cascade_plain(torch.from_numpy(x), _iir_sos(sections)).numpy()
+    return x, twin
+
+
+def test_iir_constants_match_the_kernel_source():
+    for name, value in (("kMaxSections", iir.MAX_SECTIONS), ("kMaxSlots", iir.MAX_SLOTS),
+                        ("kMaxLanes", iir.MAX_LANES), ("kMaxThreads", iir.MAX_THREADS)):
+        assert f"constexpr int {name} = {value};" in IIR_SOURCE
+    assert f"constexpr int kSlotCounts[] = {{{', '.join(map(str, iir.SLOT_COUNTS))}}};" in IIR_SOURCE
+    assert iir.SLOT_COUNTS[-1] == iir.MAX_SLOTS
+    assert READ_AHEAD >= 1
+
+
+@pytest.mark.parametrize("t_len", [1, 2, 17, 625])
+@pytest.mark.parametrize("sections", [1, 5, 14, 32])
+@pytest.mark.parametrize("lanes", LANES)
+def test_iir_lane_pipeline_is_the_twin_bit_for_bit(lanes, sections, t_len):
+    """3 windows of 5 channels in blocks of the staged shape's W for a
+    large batch (W = 32, or 18 at T = 625, and 16, 8, 4, 2 for G = 1 ..
+    16), so the last block is partly empty; K the kernel's instantiation,
+    with identity slots where it exceeds ceil(S / G). With 32 sections
+    G = 1 is refused (K = 32 > 16) but walked at K = 32, W = 8 all the
+    same. The NaN stays in its series."""
+    x, twin = _iir_case(sections, t_len)
+    if -(-sections // lanes) > iir.MAX_SLOTS:
+        with pytest.raises(ValueError, match="lanes"):
+            iir._shape(True, lanes, 1000, t_len, 5, sections, H100[1])
+        k, windows = sections, 8
+    else:
+        plan = iir._shape(True, lanes, 1000, t_len, 5, sections, H100[1])
+        assert plan.staged and plan.lanes == lanes
+        k, windows = iir.slots(sections, lanes), plan.windows
+        assert k >= -(-sections // lanes) and lanes * k <= 32
+    assert 3 % windows != 0  # the last block partly empty
+    got = _iir_kernel_walk(x, _iir_sos(sections), lanes, k, windows)
+    assert np.array_equal(got, twin, equal_nan=True)
+    assert np.isnan(got[1, :, 2]).all() and np.isfinite(np.delete(got.reshape(-1, 5), 2, axis=1)).all()
+
+
+@pytest.mark.parametrize(
+    "batch, staged, lanes, windows, blocks, threads",
+    [(1, True, 2, 1, 1, 32), (37, True, 2, 2, 19, 32), (1024, True, 2, 2, 512, 32),
+     (2048, True, 2, 2, 1024, 32), (3072, False, 1, 0, 96, 256), (16384, False, 1, 0, 512, 256)],
+)
+def test_iir_launch_plan_on_an_h100(batch, staged, lanes, windows, blocks, threads):
+    """The rule at T = 625, C = 8, 14 sections: staged (G = 2, W the fewest
+    windows that fill whole warps) below 128 series an SM, in global memory
+    (G = 1, 256 series a block) from there; 2048 and 3072 windows are the
+    measured batches either side of the switch. Groups stay inside warps
+    and blocks inside the card's limits."""
+    plan = iir.launch_plan(batch, 625, 8, 14, *H100)
+    assert (plan.staged, plan.lanes, plan.windows, plan.blocks, plan.threads) == (
+        staged, lanes, windows, blocks, threads)
+    assert plan.shared_bytes == windows * 625 * 8 * 4
+    assert 32 % plan.lanes == 0 and plan.threads % 32 == 0 and plan.threads <= iir.MAX_THREADS
+    assert plan.block_series * plan.lanes <= plan.threads and plan.blocks * plan.block_series >= batch * 8
+    assert plan.shared_bytes + iir.STATIC_SMEM <= H100[1]
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1024, 16384])
+def test_iir_tile_reads_free_of_bank_conflicts(batch):
+    """Lane 0 of each group reads word (w T + i) C + c of the tile and the
+    last lane writes the same word: within a warp the 32 / G groups' words
+    fall on distinct banks at T = 625, C = 8, for every G."""
+    for g in LANES:
+        plan = iir._shape(True, g, batch, 625, 8, 14, H100[1])
+        series = np.arange(plan.block_series)
+        words = (series // 8) * 625 * 8 + series % 8  # sample 0; sample i shifts every word by 8 i
+        warp_of = series * g // 32
+        for w in np.unique(warp_of):
+            banks = words[warp_of == w] % 32
+            assert len(set(banks)) == len(banks), (g, w)
+
+
+@pytest.mark.parametrize("t_len, staged", [(7263, True), (7264, False), (20000, False)])
+def test_iir_plan_at_the_edge_of_shared_memory(t_len, staged):
+    """One window at C = 8 stages while its tile and the kernel's own 16
+    bytes fit a block's opt-in shared memory (7263 samples: 232416 + 16 <=
+    232448 B), else runs in place in global memory, whose G is 1 up to 16
+    sections and 2 past them; forced to stage, a tile that does not fit
+    is refused, as are 33 sections."""
+    plan = iir.launch_plan(1, t_len, 8, 14, *H100)
+    assert plan.staged == staged and plan.shared_bytes == (4 * t_len * 8 if staged else 0)
+    if not staged:
+        assert plan.lanes == 1 and iir.launch_plan(1, t_len, 8, 32, *H100).lanes == 2
+        with pytest.raises(ValueError, match="fit"):
+            iir._shape(True, 2, 1, t_len, 8, 14, H100[1])
+    with pytest.raises(ValueError, match="limit"):
+        iir.launch_plan(1, t_len, 8, 33, *H100)
