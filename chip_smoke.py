@@ -57,6 +57,23 @@ of the checkout. One line per phase, each with its elapsed seconds:
      predict_batch on the 1024 windows, card against CPU
   4e. fused_preprocess(collector_stages()) on 1024 board-like windows
      against scipy float64 (iir_cascade once)
+  4f. the other families, each through InferenceEngine.predict_batch on
+     the same 1024 windows (eegnet3_best, tcn3_deploy, transformer3_best,
+     eegnet5_best, and the LRU at its default config with parameters
+     drawn with numpy from a seed): the pair-sums kernel exactly once a
+     call and no other kernel, 16 windows against the same engine on the
+     CPU (max |delta logit|, argmax), warm time split into filter and
+     decoder
+  4g. a mixed-family EnsembleEngine: the 5 flagship members with
+     tcn3_best, eegnet3_best and transformer3_best (families=, per-family
+     model_kw): pair sums, band grams and logcov features once each, card
+     against CPU (|delta prob|, argmax, guard counts), warm time
+  4h. decode_recording on a 600 s synthetic recording (75000 x 8 at hop
+     1 s: 596 windows) with max_batch=256 (3 chunks) through the
+     tcn3_deploy engine: card against CPU probabilities, start times
+     exact, pair sums once a chunk
+  5d. run_trials_ex(trials=3) with model="tcn" (the CLI's --family tcn) on
+     tcn3_deploy, under the same deadline
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -80,6 +97,23 @@ FLAGSHIP = ROOT / "checkpoints" / "logcov8wd_ens_manifest.json"
 FLAGSHIP_MEMBER = ROOT / "checkpoints" / "logcov8wd_ens_s0.npz"
 UNWHITENED = ROOT / "checkpoints" / "logcov8_ens_manifest.json"
 CHEB_KW = {"whiten": True, "dropout": 0.0, "logm": "chebyshev"}
+# 4f: the families other than the LSTM and logcov, at full width
+FAMILIES = (
+    ("eegnet", "eegnet3_best"),
+    ("tcn", "tcn3_deploy"),
+    ("transformer", "transformer3_best"),
+    ("eegnet5", "eegnet5_best"),
+    ("lru", None),  # no shipped checkpoint: parameters drawn from a seed
+)
+# 4g: the flagship members with one checkpoint of three other families
+MIX_MEMBERS = [ROOT / "checkpoints" / f"logcov8wd_ens_s{i}.npz" for i in range(5)] + [
+    ROOT / "checkpoints" / f"{n}.npz" for n in ("tcn3_best", "eegnet3_best", "transformer3_best")
+]
+MIX_FAMILIES = ["logcov8"] * 5 + ["tcn", "eegnet", "transformer"]
+MIX_KW = {"logcov8:whiten": True, "logcov8:dropout": 0.0}
+TCN_DEPLOY = ROOT / "checkpoints" / "tcn3_deploy.npz"
+RECORDING_SAMPLES = 75000  # 600 s at 125 Hz
+RECORDING_BATCH = 256
 T, C = 625, 8
 PAIRS = C * (C + 1) // 2
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3 rate.
@@ -175,6 +209,19 @@ def synthetic_windows(n: int, seed: int) -> np.ndarray:
     x = np.sin(2 * np.pi * (8 + ch) * t[:, None] + phase0)
     x = x + 0.4 * np.sin(2 * np.pi * (2 + 0.2 * ch) * t[:, None] + ch + phase0)
     x = x + 0.35 * rng.standard_normal((n, T, C))
+    return x.astype(np.float32)
+
+
+def synthetic_recording(total: int, seed: int) -> np.ndarray:
+    """A board-like continuous recording [total, 8]: the windows' sinusoids,
+    slow modulation and noise, without a break."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(total) / 125.0
+    ch = np.arange(C)
+    phase0 = rng.uniform(0, 2 * np.pi, (1, C))
+    x = np.sin(2 * np.pi * (8 + ch) * t[:, None] + phase0)
+    x = x + 0.4 * np.sin(2 * np.pi * (2 + 0.2 * ch) * t[:, None] + ch + phase0)
+    x = x + 0.35 * rng.standard_normal((total, C))
     return x.astype(np.float32)
 
 
@@ -598,6 +645,173 @@ def check_iir(dev, build_log):
         del x, outs
     phase("iir cascade shapes either side of the plan's switch: " + "; ".join(sweep))
     return err_abs, times
+
+
+def check_families(dev, windows: np.ndarray) -> list:
+    """4f: each family of FAMILIES through InferenceEngine.predict_batch:
+    the pair-sums kernel exactly once and no other kernel, 16 windows
+    against the same engine on the CPU, warm time split into filter and
+    decoder. Returns each call's launch counts."""
+    from neural_speech_decoding_tpu_torch.models.lru import random_lru_params
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+
+    b = len(windows)
+    xw = torch.from_numpy(windows).to(dev)
+    only_pair_sums = dict.fromkeys(kernels.LAUNCHES, 0)
+    only_pair_sums["kuramoto_pair_sums"] = 1
+    family_launches = []
+    for family, checkpoint in FAMILIES:
+        if checkpoint is None:
+            source = dict(params=random_lru_params(seed=0))
+            label = f"{family} (random parameters, seed 0)"
+        else:
+            source = dict(model_path=str(ROOT / "checkpoints" / f"{checkpoint}.npz"))
+            label = f"{family} {checkpoint}"
+        fam = InferenceEngine(model=family, **source)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        fam_probs = fam.predict_batch(windows)
+        torch.cuda.synchronize()
+        fam_cold_s = time.perf_counter() - t
+        launches = kernels.launches()
+        family_launches.append(launches)
+        classes = len(fam.class_names)
+        if launches != only_pair_sums:
+            raise AssertionError(f"{label} predict_batch: launches {launches}, want {only_pair_sums}")
+        if fam_probs.shape != (b, classes) or not np.isfinite(fam_probs).all():
+            raise AssertionError(f"{label} predict_batch: bad probabilities {fam_probs.shape}")
+        if np.abs(fam_probs.sum(axis=1) - 1.0).max() > 1e-5:
+            raise AssertionError(f"{label} predict_batch: probabilities do not sum to 1")
+        gpu_logits = fam.logits_batch(windows[:16])
+        cpu_logits = InferenceEngine(model=family, device="cpu", **source).logits_batch(windows[:16])
+        dl = float(np.abs(gpu_logits - cpu_logits).max())
+        if not (dl <= LOGIT_TOL and np.array_equal(gpu_logits.argmax(1), cpu_logits.argmax(1))):
+            raise AssertionError(f"{label} card vs cpu: max |delta logit| {dl}, argmax "
+                                 f"{gpu_logits.argmax(1)} vs {cpu_logits.argmax(1)}")
+        phase(f"{label} predict_batch({b}) on {dev}: {fam_cold_s:.3f} s first call; launches {launches}; "
+              f"argmax counts {np.bincount(fam_probs.argmax(1), minlength=classes).tolist()}; "
+              f"card vs cpu, 16 windows: max |delta logit| {dl:.3e} (tol {LOGIT_TOL}), argmax equal")
+        f_ms = cuda_ms(lambda: mai_filter_batch(xw, fam.config.filter, device=dev), 5)
+        filtered = mai_filter_batch(xw, fam.config.filter, device=dev)
+        d_ms = cuda_ms(lambda: fam._spec.apply(fam.params, filtered), 5)
+        w_ms = cuda_ms(lambda: fam.predict_batch(windows), 5)
+        phase(f"{label} predict_batch({b}) warm {w_ms:.3f} ms = filter {f_ms:.3f} ms + "
+              f"decoder {d_ms:.3f} ms + host")
+        del fam, filtered
+    return family_launches
+
+
+def check_mixed(dev, windows: np.ndarray, w16: np.ndarray) -> dict:
+    """4g: the flagship members with tcn3_best, eegnet3_best and
+    transformer3_best in one EnsembleEngine: the filter, the band grams and
+    the feature kernel once each, card against CPU, warm time."""
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
+
+    def mixed_engine(device=None):
+        return EnsembleEngine([str(m) for m in MIX_MEMBERS], model="logcov8", families=MIX_FAMILIES,
+                              model_kw=MIX_KW, device=device)
+
+    b = len(windows)
+    mix = mixed_engine()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    probs = mix.predict_batch(windows)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    launches = kernels.launches()
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(kuramoto_pair_sums=1, bandcov_grams=1, logcov_feats=1)
+    if launches != want:
+        raise AssertionError(f"mixed ensemble predict_batch: launches {launches}, want {want}")
+    if probs.shape != (b, 3) or not np.isfinite(probs).all() or np.abs(probs.sum(1) - 1).max() > 1e-5:
+        raise AssertionError("mixed ensemble predict_batch: bad probabilities")
+    phase(f"mixed ensemble predict_batch({b}) on {dev}: {cold_s:.3f} s first call; {mix.num_members} "
+          f"members in groups {list(dict.fromkeys(mix.families))}, shared features {mix._shared_featurize}; "
+          f"launches {launches}; argmax counts {np.bincount(probs.argmax(1), minlength=3).tolist()}")
+    before = mix.stats
+    gpu_probs = mix.predict_batch(w16)
+    gpu_flagged = mix.stats["guard_flagged"] - before["guard_flagged"]
+    cpu_mix = mixed_engine("cpu")
+    cpu_probs = cpu_mix.predict_batch(w16)
+    dp = float(np.abs(gpu_probs - cpu_probs).max())
+    if not (dp <= PROB_TOL and np.array_equal(gpu_probs.argmax(1), cpu_probs.argmax(1))
+            and gpu_flagged == cpu_mix.stats["guard_flagged"]):
+        raise AssertionError(f"mixed ensemble card vs cpu: |dprob| {dp}, guard counts "
+                             f"{gpu_flagged} vs {cpu_mix.stats['guard_flagged']}")
+    w_ms = cuda_ms(lambda: mix.predict_batch(windows), 5)
+    phase(f"mixed ensemble card vs cpu, 16 windows: max |delta prob| {dp:.3e} (tol {PROB_TOL}), argmax "
+          f"equal; guard_flagged {gpu_flagged} = {cpu_mix.stats['guard_flagged']}; "
+          f"predict_batch({b}) warm {w_ms:.3f} ms")
+    return launches
+
+
+def check_recording(dev) -> dict:
+    """4h: decode_recording of a continuous recording at hop 1 s in chunks
+    of RECORDING_BATCH through the tcn3_deploy engine: one pair-sums launch
+    a chunk, card against CPU, start times exact."""
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+
+    samples = RECORDING_SAMPLES
+    rec = synthetic_recording(samples, seed=1)
+    engine = InferenceEngine(str(TCN_DEPLOY), model="tcn")
+    n = (samples - T) // 125 + 1
+    chunks = -(-n // RECORDING_BATCH)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    probs, starts = engine.decode_recording(rec, hop_seconds=1.0, max_batch=RECORDING_BATCH)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    launches = kernels.launches()
+    if launches["kuramoto_pair_sums"] != chunks or sum(launches.values()) != chunks:
+        raise AssertionError(f"decode_recording: launches {launches}, want {chunks} pair sums")
+    if probs.shape != (n, 3) or not np.isfinite(probs).all() or np.abs(probs.sum(1) - 1).max() > 1e-5:
+        raise AssertionError(f"decode_recording: bad probabilities {probs.shape}")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    cpu_probs, cpu_starts = InferenceEngine(str(TCN_DEPLOY), model="tcn", device="cpu").decode_recording(
+        rec, hop_seconds=1.0, max_batch=RECORDING_BATCH
+    )
+    torch.set_num_threads(threads)
+    dp = float(np.abs(probs - cpu_probs).max())
+    if not (dp <= PROB_TOL and np.array_equal(probs.argmax(1), cpu_probs.argmax(1))
+            and np.array_equal(starts, cpu_starts) and np.array_equal(starts, np.arange(n, dtype=np.float64))):
+        raise AssertionError(f"decode_recording card vs cpu: |dprob| {dp}, start times equal "
+                             f"{np.array_equal(starts, cpu_starts)}")
+    w_ms = cuda_ms(lambda: engine.decode_recording(rec, hop_seconds=1.0, max_batch=RECORDING_BATCH), 3)
+    phase(f"decode_recording({samples / 125:.0f} s, hop 1 s, max_batch {RECORDING_BATCH}) tcn3_deploy on {dev}: "
+          f"{n} windows in {chunks} chunks, {cold_s:.3f} s first call, warm {w_ms:.3f} ms; launches {launches}; "
+          f"card vs cpu max |delta prob| {dp:.3e} (tol {PROB_TOL}), argmax and start times equal")
+    return launches
+
+
+def check_tcn_trials() -> dict:
+    """5d: run_trials_ex(trials=3) with model="tcn" (the CLI's --family tcn)
+    on tcn3_deploy, under the run_trials deadline."""
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.runtime.board import SyntheticBoard
+    from neural_speech_decoding_tpu_torch.runtime.tester import run_trials_ex
+
+    signal.alarm(RUN_TRIALS_DEADLINE_S)
+    try:
+        kernels.reset_launches()
+        result, _ = run_trials_ex(trials=3, serial_port=SyntheticBoard(speed=64.0), model_path=str(TCN_DEPLOY),
+                                  model="tcn", verbose=False)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+    finally:
+        signal.alarm(0)
+    if launches["kuramoto_pair_sums"] < 3:
+        raise AssertionError(f"tcn run_trials launched the pair-sums kernel too rarely: {launches}")
+    avg = result.avg_probs
+    if result.trials != 3 or avg is None or avg.shape != (3,) or abs(float(avg.sum()) - 1.0) > 1e-5:
+        raise AssertionError(f"tcn run_trials: bad result {result}")
+    phase(f"tcn3_deploy run_trials_ex(3, model='tcn') on SyntheticBoard(speed=64): avg_probs "
+          f"{np.round(avg, 4).tolist()}; launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -1042,14 +1256,21 @@ def main() -> int:
     phase(f"fused_preprocess(1024, collector_stages) on {dev}: {pre_err:.3e} of each window's scale vs "
           f"scipy float64 (tol {IIR_SCIPY_TOL}); warm {pw_ms:.3f} ms with the host copy; launches {iir_launches}")
 
+    # 4f-4h, 5d. the other families, a mixed ensemble, a recording
+    family_launches = check_families(dev, windows)
+    mix_launches = check_mixed(dev, windows, w16)
+    rec_launches = check_recording(dev)
+    tcn_trial_launches = check_tcn_trials()
+
     # 6. report
     k_ms, p_ms, bound, by = times[TIMED[-1]]
     phase(f"kernel times below are at B={TIMED[-1]} (batch {TIMED[0]}: kernel {times[TIMED[0]][0]:.4f} ms, "
           f"plain {times[TIMED[0]][1]:.4f} ms, bound {times[TIMED[0]][2]:.4f} ms)")
     def launched(name):
-        return sum(run[name] for run in (main_launches, trial_launches, flagship_launches,
+        return sum(run[name] for run in [main_launches, trial_launches, flagship_launches,
                                          flagship_trial_launches, cheb_launches, cheb_trial_launches,
-                                         unw_launches, iir_launches))
+                                         unw_launches, iir_launches, mix_launches, rec_launches,
+                                         tcn_trial_launches] + family_launches)
 
     logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
                               iir_cascade=iir_times[TIMED[0]])

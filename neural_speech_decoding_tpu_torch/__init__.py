@@ -7,13 +7,14 @@ ops/iir.butter_sos, for the Butterworth design).
 
   config.py      frozen dataclass configs (filter / decoder / pipeline)
   io/            .npz and .pth parameter loading, JAX-pytree conversion
-  ops/           Hilbert operator, MAI (Kuramoto) filter, LSTM gate math,
+  ops/           epoching, Hilbert operator, MAI (Kuramoto) filter, LSTM gate math,
                  8x8 SPD algebra (spd.py), Butterworth design (iir.py),
                  kernels/ hand-written CUDA kernels with their plain twins
                  (pair sums, band grams, logcov features, Clenshaw matrix
                  log, zero-phase IIR cascade)
-  models/        LSTM decoder and log-covariance family (eval paths), the
-                 registry of families
+  models/        every decoder family of the JAX registry in eval mode
+                 (LSTM, log-covariance, EEGNet, TCN, transformer, LRU),
+                 the registry of families
   runtime/       boards, connector, streaming producer, InferenceEngine,
                  EnsembleEngine, run_trials and the tester CLI
   utils/         device selection, latency metrics

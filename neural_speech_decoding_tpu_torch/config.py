@@ -1,9 +1,13 @@
 """Typed configuration for the decode pipeline.
 
-Counterpart of neural_speech_decoding_tpu/config.py:14-140. Only the
-fields the port reads are kept: the LSTM runs the streaming two-layer eval
-scan in float32, with its shapes taken from the parameters (no bf16 turbo,
-no per-layer or training path, so no dropout, yet).
+Counterpart of neural_speech_decoding_tpu/config.py:14-140: the filter,
+the pipeline (window geometry, `trials` per snapshot, the 3- and 5-class
+names, `five_class_pipeline`) and the LSTM's decoder config. Of the LSTM's
+fields only those the port reads are kept: it runs the streaming
+two-layer eval scan in float32, with its shapes taken from the parameters
+(no bf16 turbo, no per-layer or training path, so no dropout, yet). The
+other families' configs live beside their models (models/eegnet.py,
+tcn.py, transformer.py, lru.py, logcov.py) and equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ class PipelineConfig:
     sample_rate: int = 125  # Hz, Neuropawn Knight board
     num_channels: int = 8
     window_seconds: float = 5.0
+    trials: int = 10  # windows averaged per snapshot (the reference tester)
     class_names: Tuple[str, ...] = THREE_CLASS_NAMES
     filter: FilterConfig = dataclasses.field(default_factory=FilterConfig)
     decoder: DecoderConfig = dataclasses.field(default_factory=DecoderConfig)
@@ -67,3 +72,10 @@ class PipelineConfig:
     def window_samples(self) -> int:
         return max(1, int(self.window_seconds * self.sample_rate))
 
+
+
+def five_class_pipeline() -> PipelineConfig:
+    return PipelineConfig(
+        class_names=FIVE_CLASS_NAMES,
+        decoder=DecoderConfig(num_classes=5),
+    )

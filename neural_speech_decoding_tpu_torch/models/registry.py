@@ -1,18 +1,22 @@
-"""Model registry: the decoder families the port serves, by name.
+"""Model registry: every decoder family of the JAX registry, by name.
 
-Counterpart of neural_speech_decoding_tpu/models/registry.py for the
-families ported so far: the LSTM ("lstm", "lstm5") and the log-covariance
+Counterpart of neural_speech_decoding_tpu/models/registry.py, in eval
+mode: the LSTM ("lstm", "lstm5"), EEGNet ("eegnet", "eegnet5"), the
+transformer ("transformer", "transformer5"), the TCN ("tcn", "tcn5",
+"tcn_small", "tcn_wide"), the LRU ("lru", "lru5") and the log-covariance
 family ("logcov", "logcov5", "logcov8", "logcov12", "logcov8_5",
-"logcov12_5"), in eval mode. Every other family of the JAX registry raises
-NotImplementedError. A ModelSpec carries the family's config and class
-names; a logcov spec also
+"logcov12_5"). A ModelSpec carries the family's config and class names and
+
+  apply(params, x_btc) -> logits [B, classes]
+
+and a logcov spec also
 
   apply_ex(params, x_btc) -> (logits, {"domain_flags": [B] bool})
   featurize_ex(params, x_btc) -> (feats, flags)
   head_apply(params, feats) -> logits
 
 (the engines run the LSTM through models/lstm.decoder_logits with the
-spec's config).
+pipeline's decoder config, which may differ from the spec's).
 """
 
 from __future__ import annotations
@@ -26,7 +30,12 @@ from neural_speech_decoding_tpu_torch.config import (
     THREE_CLASS_NAMES,
     DecoderConfig,
 )
+from neural_speech_decoding_tpu_torch.models import eegnet as _eegnet
 from neural_speech_decoding_tpu_torch.models import logcov as _logcov
+from neural_speech_decoding_tpu_torch.models import lru as _lru
+from neural_speech_decoding_tpu_torch.models import tcn as _tcn
+from neural_speech_decoding_tpu_torch.models import transformer as _transformer
+from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +43,7 @@ class ModelSpec:
     name: str
     config: Any
     class_names: Tuple[str, ...]
+    apply: Callable[..., Any]
     apply_ex: Optional[Callable[..., Any]] = None
     featurize_ex: Optional[Callable[..., Any]] = None
     head_apply: Optional[Callable[..., Any]] = None
@@ -41,7 +51,34 @@ class ModelSpec:
 
 def _lstm_spec(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpec:
     cfg = DecoderConfig(num_classes=num_classes, **cfg_kw)
-    return ModelSpec(name=name, config=cfg, class_names=tuple(class_names))
+    return ModelSpec(
+        name=name,
+        config=cfg,
+        class_names=tuple(class_names),
+        apply=lambda p, x: decoder_logits(p, x, cfg),
+    )
+
+
+def _plain_spec(config_cls, apply_fn) -> Callable[..., ModelSpec]:
+    """Spec factory of a family whose spec has only `apply`: EEGNet, the TCN,
+    the transformer and the LRU."""
+
+    def make(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpec:
+        cfg = config_cls(num_classes=num_classes, **cfg_kw)
+        return ModelSpec(
+            name=name,
+            config=cfg,
+            class_names=tuple(class_names),
+            apply=lambda p, x: apply_fn(p, x, cfg),
+        )
+
+    return make
+
+
+_eegnet_spec = _plain_spec(_eegnet.EEGNetConfig, _eegnet.eegnet_apply)
+_tcn_spec = _plain_spec(_tcn.TCNConfig, _tcn.tcn_apply)
+_transformer_spec = _plain_spec(_transformer.TransformerConfig, _transformer.transformer_apply)
+_lru_spec = _plain_spec(_lru.LRUConfig, _lru.lru_apply)
 
 
 def _logcov_spec(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpec:
@@ -50,6 +87,7 @@ def _logcov_spec(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpe
         name=name,
         config=cfg,
         class_names=tuple(class_names),
+        apply=lambda p, x: _logcov.logcov_apply_ex(p, x, cfg)[0],
         apply_ex=lambda p, x: _logcov.logcov_apply_ex(p, x, cfg),
         featurize_ex=lambda p, x: _logcov.logcov_features(
             x, cfg, whitener=p.get("whitener"), with_flags=True
@@ -67,6 +105,21 @@ _BROAD_BANDS = _logcov.LogCovConfig().bands
 _FAMILIES: Dict[str, Callable[..., ModelSpec]] = {
     "lstm": lambda **kw: _lstm_spec("lstm", 3, THREE_CLASS_NAMES, **kw),
     "lstm5": lambda **kw: _lstm_spec("lstm5", 5, FIVE_CLASS_NAMES, **kw),
+    "eegnet": lambda **kw: _eegnet_spec("eegnet", 3, THREE_CLASS_NAMES, **kw),
+    "eegnet5": lambda **kw: _eegnet_spec("eegnet5", 5, FIVE_CLASS_NAMES, **kw),
+    "transformer": lambda **kw: _transformer_spec("transformer", 3, THREE_CLASS_NAMES, **kw),
+    "transformer5": lambda **kw: _transformer_spec("transformer5", 5, FIVE_CLASS_NAMES, **kw),
+    "tcn": lambda **kw: _tcn_spec("tcn", 3, THREE_CLASS_NAMES, **kw),
+    "tcn5": lambda **kw: _tcn_spec("tcn5", 5, FIVE_CLASS_NAMES, **kw),
+    "lru": lambda **kw: _lru_spec("lru", 3, THREE_CLASS_NAMES, **kw),
+    "lru5": lambda **kw: _lru_spec("lru5", 5, FIVE_CLASS_NAMES, **kw),
+    # capacity variants: a small, harder-regularised stack and a wide one
+    "tcn_small": lambda **kw: _tcn_spec(
+        "tcn_small", 3, THREE_CLASS_NAMES, **{"width": 32, "blocks": 4, "dropout": 0.45, **kw}
+    ),
+    "tcn_wide": lambda **kw: _tcn_spec(
+        "tcn_wide", 3, THREE_CLASS_NAMES, **{"width": 64, "dropout": 0.4, **kw}
+    ),
     "logcov": lambda **kw: _logcov_spec("logcov", 3, THREE_CLASS_NAMES, **kw),
     "logcov5": lambda **kw: _logcov_spec("logcov5", 5, FIVE_CLASS_NAMES, **kw),
     "logcov8": lambda **kw: _logcov_spec(
@@ -82,13 +135,6 @@ _FAMILIES: Dict[str, Callable[..., ModelSpec]] = {
         "logcov12_5", 5, FIVE_CLASS_NAMES, **{"bands": _BROAD_BANDS + _NARROW_BANDS, **kw}
     ),
 }
-
-# Families of the JAX registry that the port does not serve yet.
-_NOT_PORTED = (
-    "eegnet", "eegnet5", "transformer", "transformer5", "tcn", "tcn5",
-    "lru", "lru5", "tcn_small", "tcn_wide",
-)
-
 
 def available_models() -> Tuple[str, ...]:
     return tuple(sorted(_FAMILIES))
@@ -135,10 +181,6 @@ def get_model(name: str, **cfg_kw: Any) -> ModelSpec:
     """Resolve a family, optionally overriding config fields
     (get_model("logcov8", whiten=True)); overrides win over the entry's
     own defaults, and lists are frozen to tuples."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {name!r} is not ported yet (ROADMAP.md: the other families)"
-        )
     try:
         make = _FAMILIES[name]
     except KeyError:

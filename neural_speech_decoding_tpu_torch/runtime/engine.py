@@ -1,18 +1,22 @@
 """Inference engine: batched decoding on one device.
 
-Counterpart of neural_speech_decoding_tpu/runtime/engine.py:36-286. One
+Counterpart of neural_speech_decoding_tpu/runtime/engine.py:36-320. One
 call of `predict_batch` runs the whole pipeline on the engine's device:
 
   raw windows [B, T, C] -> ops/kuramoto.mai_filter_batch (fast mode: the
-  pair-sums CUDA kernel on the card) -> the family's decoder (the LSTM, or
-  the log-covariance features and head, whose guard flags feed the stats)
-  -> softmax
+  pair-sums CUDA kernel on the card) -> the family's decoder (the LSTM;
+  EEGNet, the TCN, the transformer or the LRU through the spec's `apply`;
+  or the log-covariance features and head, whose guard flags feed the
+  stats) -> softmax
 
 `_ServingBase` holds what InferenceEngine and EnsembleEngine share: the
-thread-safe {"windows", "guard_flagged"} stats, power-of-two batch buckets
-(zero windows, sliced away, and never counted), predict / predict_batch /
-logits_batch and warmup. The engines run on CUDA unless the caller passes
-`device="cpu"`; without CUDA they raise.
+thread-safe {"windows", "guard_flagged"} stats, with guard flags of
+asynchronous calls parked on the device until `stats` is read,
+power-of-two batch buckets (zero windows, sliced away, and never
+counted), predict / predict_batch / predict_batch_async / logits_batch and
+warmup. `InferenceEngine.decode_recording` frames a continuous recording
+on the device and decodes it in chunks. The engines run on CUDA unless the
+caller passes `device="cpu"`; without CUDA they raise.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
 from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
 from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 from neural_speech_decoding_tpu_torch.models.registry import get_model
+from neural_speech_decoding_tpu_torch.ops.epoching import frame_signal, frame_times, num_frames
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
 from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -63,17 +68,42 @@ class _ServingBase:
     (windows tensor -> (logits, flags or None)); an ensemble also
     overrides `_probs`."""
 
+    #: parked guard-flag vectors are folded (one host read each) when the
+    #: list grows past this, so a caller that never reads `stats` cannot
+    #: pin unbounded device memory
+    _MAX_PARKED_FLAGS = 4096
+
     def _init_serving(self) -> None:
         self._stats = {"windows": 0, "guard_flagged": 0}
+        self._parked: list = []  # (flags device tensor, windows) of async calls
         self._stats_lock = threading.Lock()
 
     @property
     def stats(self) -> Dict[str, int]:
         """{"windows", "guard_flagged"}: windows decoded, and those of them
         whose covariance spectrum the logcov guard clamped (always 0 for
-        families without a guard). Padding windows are never counted."""
+        families without a guard). Padding windows are never counted.
+        Folds the flags that `predict_batch_async` parked: the list is
+        detached under the lock, read outside it, and added under it."""
+        with self._stats_lock:
+            pending, self._parked = self._parked, []
+        if pending:
+            folded = [(int(flags.sum().item()), b) for flags, b in pending]
+            with self._stats_lock:
+                for flagged, b in folded:
+                    self._stats["guard_flagged"] += flagged
+                    self._stats["windows"] += b
         with self._stats_lock:
             return dict(self._stats)
+
+    def _park_flags(self, flags: torch.Tensor, b: int) -> None:
+        """Park a guard-flag device tensor instead of reading it now (a host
+        read would wait for the call); `stats` folds the parked ones."""
+        with self._stats_lock:
+            self._parked.append((flags, b))
+            overflow = len(self._parked) > self._MAX_PARKED_FLAGS
+        if overflow:
+            _ = self.stats
 
     def _forward(self, windows_btc: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         raise NotImplementedError
@@ -83,16 +113,21 @@ class _ServingBase:
 
     @torch.no_grad()
     def _decode(self, windows_btc, softmax: bool) -> np.ndarray:
-        x = np.asarray(windows_btc, dtype=np.float32)
+        """Windows (host array, or a tensor on any device) -> probabilities
+        or logits as a host array."""
+        if isinstance(windows_btc, torch.Tensor):
+            x = windows_btc.to(self.device, torch.float32)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(windows_btc, dtype=np.float32))
         if x.ndim != 3:
-            raise ValueError(f"expected windows [B, T, C], got shape {x.shape}")
+            raise ValueError(f"expected windows [B, T, C], got shape {tuple(x.shape)}")
         b = x.shape[0]
         if b == 0:
             return np.zeros((0, len(self.class_names)), np.float32)
         bb = _bucket(b)
         if bb != b:  # zero windows, sliced away below
-            x = np.concatenate([x, np.zeros((bb - b,) + x.shape[1:], np.float32)])
-        logits, flags = self._forward(torch.from_numpy(x).to(self.device))
+            x = torch.cat([x, x.new_zeros((bb - b,) + tuple(x.shape[1:]))])
+        logits, flags = self._forward(x.to(self.device).contiguous())
         out = self._probs(logits) if softmax else logits
         out = out[..., :b, :].cpu().numpy()
         flagged = 0 if flags is None else int(flags[:b].sum().item())
@@ -109,6 +144,25 @@ class _ServingBase:
     def predict_batch(self, windows_btc: np.ndarray) -> np.ndarray:
         """[B, T, C] -> probabilities [B, classes] (float32)."""
         return self._decode(windows_btc, softmax=True)
+
+    @torch.no_grad()
+    def predict_batch_async(self, windows_btc) -> torch.Tensor:
+        """[B, T, C] windows on the engine's device -> probabilities
+        [B, classes] as a device tensor, without waiting for the card (no
+        batch bucket, no host read). A family without a guard has its
+        windows counted now; a guard's flags are parked on the device and
+        folded into `stats`, with their windows, when it is next read."""
+        x = torch.as_tensor(windows_btc, dtype=torch.float32, device=self.device)
+        if x.ndim != 3:
+            raise ValueError(f"expected windows [B, T, C], got shape {tuple(x.shape)}")
+        logits, flags = self._forward(x.contiguous())
+        b = int(x.shape[0])
+        if flags is None:
+            with self._stats_lock:
+                self._stats["windows"] += b
+        else:
+            self._park_flags(flags, b)
+        return self._probs(logits)
 
     def predict(self, window_tc: np.ndarray) -> Tuple[np.ndarray, str]:
         """One [T, C] window -> (probs [classes] float32, label) — the
@@ -182,6 +236,7 @@ class InferenceEngine(_ServingBase):
                 sample_rate=int(sample_rate),
                 num_channels=config.num_channels,
                 window_seconds=config.window_seconds,
+                trials=config.trials,
                 class_names=config.class_names,
                 filter=config.filter,
                 decoder=config.decoder,
@@ -195,5 +250,26 @@ class InferenceEngine(_ServingBase):
         if self._is_lstm:
             # honours a custom DecoderConfig coming through PipelineConfig
             return decoder_logits(self.params, filtered, self.config.decoder), None
+        if self._spec.apply_ex is None:
+            return self._spec.apply(self.params, filtered), None
         logits, aux = self._spec.apply_ex(self.params, filtered)
         return logits, aux["domain_flags"]
+
+    def decode_recording(self, signal_tc, hop_seconds: float = 1.0, max_batch: int = 4096):
+        """Decode a continuous recording [T_total, C]: frame it into sliding
+        windows (hop `int(hop_seconds * sample_rate)` samples) on the
+        engine's device and decode them in chunks of `max_batch`. Returns
+        (probs [N, classes] float32, window start seconds [N] float64)."""
+        window = self.config.window_samples
+        hop = max(1, int(hop_seconds * self.config.sample_rate))
+        total = signal_tc.shape[0]
+        n = num_frames(total, window, hop)
+        if n <= 0:
+            raise ValueError(
+                f"recording of {total} samples is shorter than one {window}-sample window"
+            )
+        signal = torch.as_tensor(signal_tc, dtype=torch.float32, device=self.device)
+        windows = frame_signal(signal, window, hop)
+        chunks = [self.predict_batch(windows[i : i + max_batch]) for i in range(0, n, max_batch)]
+        starts, _ = frame_times(total, window, hop, self.config.sample_rate)
+        return np.concatenate(chunks, axis=0), starts.numpy()

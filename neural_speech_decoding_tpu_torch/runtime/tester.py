@@ -23,11 +23,15 @@ pair-sums CUDA kernel. (The JAX tester passes PipelineConfig(), whose
 The engine runs on CUDA unless `device="cpu"` is passed. `serial_port`
 takes a board spec ("synthetic", "replay:<file.npy>") or a Board object.
 
-CLI (`main`, the counterpart of the JAX `nsd-decode`): serve a checkpoint,
-or a fit_ensemble manifest through EnsembleEngine, e.g. the flagship
+CLI (`main`, the counterpart of the JAX `nsd-decode`): serve a checkpoint
+of any family of the registry (`--family`), or a fit_ensemble manifest
+through EnsembleEngine (single-family, or mixed with a "families" list),
+e.g. the flagship, or a TCN checkpoint:
 
   python -m neural_speech_decoding_tpu_torch.runtime.tester \
       --model checkpoints/logcov8wd_ens_manifest.json --board synthetic --speed 64
+  python -m neural_speech_decoding_tpu_torch.runtime.tester \
+      --model checkpoints/tcn3_deploy.npz --family tcn --board synthetic --speed 64
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from typing import Optional
 
 import numpy as np
 
-from neural_speech_decoding_tpu_torch.models.registry import parse_model_kw
+from neural_speech_decoding_tpu_torch.models.registry import available_models, parse_model_kw
 from neural_speech_decoding_tpu_torch.runtime.board import open_board
 from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
 from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
@@ -228,10 +232,12 @@ def main(argv=None) -> None:
     ap.add_argument(
         "--model", default=None,
         help="checkpoint path (.pth or .npz), or a fit_ensemble "
-             "*_manifest.json to serve the seed ensemble",
+             "*_manifest.json to serve its ensemble (one family or a mix)",
     )
     ap.add_argument("--family", default="lstm",
-                    help="decoder family: lstm | lstm5 | logcov8 | logcov8_5 | ...")
+                    help="decoder family of --model (a checkpoint): "
+                         + " | ".join(available_models())
+                         + "; a manifest names its own family or families")
     ap.add_argument(
         "--model-kw", action="append", default=[], metavar="KEY=VALUE",
         help="model-config override for the family (repeatable), e.g. "

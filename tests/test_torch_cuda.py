@@ -862,3 +862,120 @@ def test_eigh_backend_beyond_the_solver_batch(cuda):
     assert got.shape == (5000, 8, 8, 8)
     want = torch.from_numpy(np.einsum("mij,mj,mkj->mik", q, np.log(lam), q)).float()
     assert (got.cpu().reshape(-1, 8, 8) - want).abs().max().item() <= 1e-4
+
+
+def _board_windows(n: int, seed: int) -> np.ndarray:
+    """Board-like raw windows [n, T, 8] (runtime/board.SyntheticBoard's
+    sinusoids, slow modulation and noise)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) / 125.0
+    ch = np.arange(C)
+    phase = rng.uniform(0, 2 * np.pi, (n, 1, C))
+    x = np.sin(2 * np.pi * (8 + ch) * t[:, None] + phase)
+    x = x + 0.4 * np.sin(2 * np.pi * (2 + 0.2 * ch) * t[:, None] + ch + phase)
+    return (x + 0.35 * rng.standard_normal((n, T, C))).astype(np.float32)
+
+
+def _family_source(checkpoint):
+    from neural_speech_decoding_tpu_torch.models.lru import random_lru_params
+
+    if checkpoint is None:
+        return {"params": random_lru_params(seed=0)}
+    return {"model_path": str(REPO / "checkpoints" / f"{checkpoint}.npz")}
+
+
+@pytest.mark.parametrize("family, checkpoint", [
+    ("eegnet", "eegnet3_best"),
+    ("tcn", "tcn3_deploy"),
+    ("transformer", "transformer3_best"),
+    ("eegnet5", "eegnet5_best"),
+    ("lru", None),
+])
+def test_family_engine_cuda_matches_cpu(cuda, family, checkpoint):
+    """Each family of slice 4 through InferenceEngine on the card: one
+    pair-sums launch and no other kernel a call, logits within 1e-4 of the
+    same engine on the CPU with equal argmax."""
+    x = _board_windows(37, 4)
+    gpu = InferenceEngine(model=family, **_family_source(checkpoint))
+    before = kernels.launches()
+    got = gpu.logits_batch(x)
+    torch.cuda.synchronize()
+    after = kernels.launches()
+    assert after["kuramoto_pair_sums"] == before["kuramoto_pair_sums"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want = InferenceEngine(model=family, device="cpu", **_family_source(checkpoint)).logits_batch(x)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-4
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+
+
+MIX = [f"logcov8wd_ens_s{i}" for i in range(5)] + ["tcn3_best", "eegnet3_best", "transformer3_best"]
+
+
+def test_mixed_ensemble_launch_counts(cuda):
+    """The flagship members with a TCN, an EEGNet and a transformer in one
+    EnsembleEngine: the filter, the band grams and the feature kernel
+    exactly once a call; probabilities within 1e-4 of the CPU engine,
+    equal argmax and guard counts."""
+    kw = dict(model="logcov8", families=["logcov8"] * 5 + ["tcn", "eegnet", "transformer"],
+              model_kw={"logcov8:whiten": True, "logcov8:dropout": 0.0})
+    paths = [str(REPO / "checkpoints" / f"{m}.npz") for m in MIX]
+    x = _board_windows(37, 6)
+    x[3] = 0.0
+    gpu = EnsembleEngine(paths, **kw)
+    kernels.reset_launches()
+    got = gpu.predict_batch(x)
+    torch.cuda.synchronize()
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update(kuramoto_pair_sums=1, bandcov_grams=1, logcov_feats=1)
+    assert kernels.launches() == want_launches
+    cpu = EnsembleEngine(paths, device="cpu", **kw)
+    want = cpu.predict_batch(x)
+    assert np.abs(got - want).max() <= 1e-4
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    assert gpu.stats == cpu.stats
+    assert gpu.logits_batch(x[:2]).shape == (8, 2, 3)
+
+
+@pytest.mark.parametrize("samples, max_batch", [(625 + 125 * 99, 32), (625 + 125 * 31, 32), (625, 4096)])
+def test_decode_recording_chunking(cuda, samples, max_batch):
+    """decode_recording on the card: one pair-sums launch a chunk of
+    max_batch windows (100 windows in 4 chunks, 32 in 1, a one-window
+    recording), probabilities within 1e-4 of the CPU engine, start times
+    equal."""
+    rng = np.random.default_rng(samples)
+    rec = (np.sin(np.arange(samples)[:, None] * 0.3 + np.arange(C)) + 0.3 * rng.standard_normal((samples, C)))
+    rec = rec.astype(np.float32)
+    path = str(REPO / "checkpoints" / "tcn3_deploy.npz")
+    gpu = InferenceEngine(path, model="tcn")
+    n = (samples - T) // 125 + 1
+    before = kernels.launches()["kuramoto_pair_sums"]
+    got, starts = gpu.decode_recording(rec, hop_seconds=1.0, max_batch=max_batch)
+    torch.cuda.synchronize()
+    assert kernels.launches()["kuramoto_pair_sums"] == before + -(-n // max_batch)
+    want, want_starts = InferenceEngine(path, model="tcn", device="cpu").decode_recording(
+        rec, hop_seconds=1.0, max_batch=max_batch
+    )
+    assert got.shape == (n, 3) and np.abs(got - want).max() <= 1e-4
+    np.testing.assert_array_equal(starts, want_starts)
+    assert gpu.stats["windows"] == n
+
+
+def test_predict_batch_async_parks_flags(cuda):
+    """predict_batch_async on the card returns a device tensor and leaves
+    the guard flags parked (a device tensor each) until stats is read;
+    then stats agree with predict_batch's on the CPU."""
+    path = str(REPO / "checkpoints" / "logcov8w_deploy_s0.npz")
+    kw = dict(model="logcov8", model_kw={"whiten": True})
+    gpu = InferenceEngine(path, **kw)
+    x = torch.from_numpy(_board_windows(16, 8)).to(cuda)
+    out = [gpu.predict_batch_async(x) for _ in range(3)]
+    assert all(o.is_cuda and o.shape == (16, 3) for o in out)
+    assert len(gpu._parked) == 3 and all(f.is_cuda for f, _ in gpu._parked)
+    assert gpu._stats == {"windows": 0, "guard_flagged": 0}
+    cpu = InferenceEngine(path, device="cpu", **kw)
+    want = cpu.predict_batch(x.cpu().numpy())
+    assert np.abs(out[0].cpu().numpy() - want).max() <= 1e-4
+    for _ in range(2):
+        cpu.predict_batch(x.cpu().numpy())
+    assert gpu.stats == cpu.stats and not gpu._parked

@@ -116,8 +116,8 @@ def test_sample_rate_quirk():
 def test_engine_refusals(monkeypatch):
     with pytest.raises(ValueError, match="model_path or params"):
         InferenceEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(str(NPZ3), model="eegnet", device="cpu")
+    with pytest.raises(ValueError, match="LSTM-family"):
+        InferenceEngine(str(REPO / "model.pth"), model="eegnet", device="cpu")
     # (h) no CUDA and no explicit device: raise, never fall back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
