@@ -74,6 +74,22 @@ of the checkout. One line per phase, each with its elapsed seconds:
      exact, pair sums once a chunk
   5d. run_trials_ex(trials=3) with model="tcn" (the CLI's --family tcn) on
      tcn3_deploy, under the same deadline
+  7. training on the card, each run with the counts set to 0 before and
+     read after:
+     7a. the flagship recipe (logcov8 whitened, dropout 0, noise
+         augmentation 0.5, label smoothing 0.1, lr 1e-3, 120 epochs) on the
+         179 three-class golden trials through train(preprocessed=...): the
+         band-gram and feature kernels launched, the train loss falling,
+         the time of a head-space epoch and of featurize, and the saved
+         member served card against CPU (|delta prob|)
+     7b. the training CLI, --model lstm at full width, one epoch on 42
+         synthetic raw trial CSVs (the pair-sums kernel filters both
+         splits), and its .npz served card against CPU (|delta logit|)
+     7c. one full-width LSTM step (batch 32, deterministic train mode):
+         every leaf's gradient card against CPU, and the step's time
+         (steps/s, windows/s); autograd through the band grams, the
+         Clenshaw log and the logcov kernel route against autograd through
+         their twins, each forward launching its kernel
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -81,10 +97,12 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -112,6 +130,10 @@ MIX_MEMBERS = [ROOT / "checkpoints" / f"logcov8wd_ens_s{i}.npz" for i in range(5
 MIX_FAMILIES = ["logcov8"] * 5 + ["tcn", "eegnet", "transformer"]
 MIX_KW = {"logcov8:whiten": True, "logcov8:dropout": 0.0}
 TCN_DEPLOY = ROOT / "checkpoints" / "tcn3_deploy.npz"
+# 7: training on the card
+GOLDEN = ROOT / "tests" / "golden" / "reference_filtered.npz"
+FLAGSHIP_KW = {"whiten": True, "dropout": 0.0}
+FLAGSHIP_EPOCHS = 120  # the manifest's recipe
 RECORDING_SAMPLES = 75000  # 600 s at 125 Hz
 RECORDING_BATCH = 256
 T, C = 625, 8
@@ -151,6 +173,12 @@ IIR_SCIPY_TOL = 1e-4  # of scale: the JAX package's own limit (tests/test_pallas
 F64_RATIO = 2.0
 LOGIT_TOL = 1e-4  # the JAX package's f32 fidelity budget
 PROB_TOL = 1e-4
+# LSTM loss gradients card vs CPU, over each leaf's max(1, max|g|): the CPU
+# parity tests' budget against JAX (tests/test_torch_train_models.py)
+GRAD_TOL = 1e-4
+# a kernel route's backward recomputes through its twin from the same
+# inputs and cotangent, so the two gradients agree to rounding
+ROUTE_GRAD_TOL = 1e-5
 RUN_TRIALS_DEADLINE_S = 120
 BATCHES = (1, 37, 1024, 16384)  # the kernel checks' batch sizes
 OTHER_T = (97, 1250)  # other window lengths of the pair-sums check
@@ -814,6 +842,210 @@ def check_tcn_trials() -> dict:
     return launches
 
 
+def golden_three_class():
+    """The 179 three-class trials of tests/golden/reference_filtered.npz
+    (MAI-filtered; the file names carry the labels) as a TrialDataset."""
+    from neural_speech_decoding_tpu_torch.config import THREE_CLASS_PREFIXES
+    from neural_speech_decoding_tpu_torch.io.dataset import TrialDataset, parse_label
+
+    with np.load(GOLDEN, allow_pickle=False) as z:
+        filtered, files = z["filtered"], [str(f) for f in z["files"]]
+    labels = [parse_label(f, THREE_CLASS_PREFIXES) for f in files]
+    keep = [i for i, label in enumerate(labels) if label is not None]
+    return TrialDataset(
+        windows=filtered[keep],
+        labels=np.asarray([labels[i] for i in keep], np.int32),
+        class_prefixes=THREE_CLASS_PREFIXES,
+        files=tuple(files[i] for i in keep),
+    )
+
+
+def train_flagship(dev, w16: np.ndarray, smi: str) -> dict:
+    """7a: the flagship recipe (checkpoints/logcov8wd_ens_manifest.json:
+    logcov8, whitened, dropout 0, noise augmentation 0.5, label smoothing
+    0.1, lr 1e-3, constant schedule, 120 epochs) on the 179 golden trials
+    through train(preprocessed=...), counts set to 0 before and read
+    after; the loss must fall; the saved member served card against CPU."""
+    from neural_speech_decoding_tpu_torch.io.params_io import save_params_npz
+    from neural_speech_decoding_tpu_torch.models.registry import get_model
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+    from neural_speech_decoding_tpu_torch.train.loop import TrainConfig, train
+
+    ds = golden_three_class()
+    if len(ds) != 179:
+        raise AssertionError(f"golden three-class trials: {len(ds)}, want 179")
+    cfg = TrainConfig(learning_rate=1e-3, label_smoothing=0.1, augment_prob=0.5, epochs=FLAGSHIP_EPOCHS)
+    kernels.reset_launches()
+    t = time.perf_counter()
+    params, hist = train(ds, model="logcov8", model_kw=FLAGSHIP_KW, train_cfg=cfg, preprocessed=ds.windows,
+                         verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = kernels.launches()
+    if launches["bandcov_grams"] < 1 or launches["logcov_feats"] < 1:
+        raise AssertionError(f"flagship training launched no band-gram or feature kernel: {launches}")
+    first, last = hist[0]["train_loss"], hist[-1]["train_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"flagship training: train loss {first} -> {last} did not fall")
+    epoch_s = (hist[-1]["wall_s"] - hist[0]["wall_s"]) / (len(hist) - 1)
+    best = max(h["val_accuracy"] for h in hist)
+    phase(f"7a flagship recipe on {dev} ({smi}): train({len(ds)} golden trials, {len(hist)} epochs) "
+          f"{train_s:.3f} s, {epoch_s * 1e3:.3f} ms a head-space epoch; launches {launches}; train loss "
+          f"{first:.4f} -> {last:.4f}; val accuracy {hist[0]['val_accuracy']:.3f} -> {hist[-1]['val_accuracy']:.3f} "
+          f"(best {best:.3f})")
+    spec = get_model("logcov8", **FLAGSHIP_KW)
+    x = torch.from_numpy(ds.windows).to(dev)
+    feat_ms = cuda_ms(lambda: spec.featurize(params, x), 5)
+    phase(f"7a featurize({len(ds)}) on {dev}: {feat_ms:.4f} ms")
+    with tempfile.TemporaryDirectory() as d:
+        member = Path(d) / "member.npz"
+        save_params_npz(member, params)
+        gpu = InferenceEngine(str(member), model="logcov8", model_kw=FLAGSHIP_KW).predict_batch(w16)
+        cpu = InferenceEngine(str(member), model="logcov8", model_kw=FLAGSHIP_KW, device="cpu").predict_batch(w16)
+    dp = float(np.abs(gpu - cpu).max())
+    if not (dp <= PROB_TOL and np.array_equal(gpu.argmax(1), cpu.argmax(1))):
+        raise AssertionError(f"trained member card vs cpu: max |delta prob| {dp}")
+    phase(f"7a trained member served card vs cpu, 16 windows: max |delta prob| {dp:.3e} (tol {PROB_TOL}), "
+          "argmax equal")
+    return launches
+
+
+def train_cli(dev, w16: np.ndarray) -> dict:
+    """7b: `python -m neural_speech_decoding_tpu_torch.train` in process,
+    --model lstm at full width (hidden 48, 2 layers, T 625), one epoch on
+    42 synthetic raw trial CSVs written to a temporary directory, on the
+    default device (the card); then the written .npz served card against
+    CPU."""
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+    from neural_speech_decoding_tpu_torch.train.__main__ import main as train_main
+
+    with tempfile.TemporaryDirectory() as d:
+        raw = synthetic_windows(42, seed=7) * 20.0
+        for i, x in enumerate(raw):
+            cls = ("food", "water", "backgroundnoise")[i % 3]
+            np.savetxt(Path(d) / f"{cls}_{i:04d}.csv", x, delimiter=",", fmt="%.7f")
+        out = Path(d) / "lstm.npz"
+        kernels.reset_launches()
+        t = time.perf_counter()
+        train_main(["--model", "lstm", "--data-dir", d, "--epochs", "1", "--batch-size", "32", "--out", str(out)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t
+        launches = kernels.launches()
+        if launches["kuramoto_pair_sums"] < 2:
+            raise AssertionError(f"the CLI filtered its splits without the pair-sums kernel: {launches}")
+        gpu = InferenceEngine(str(out)).logits_batch(w16)
+        cpu = InferenceEngine(str(out), device="cpu").logits_batch(w16)
+    dl = float(np.abs(gpu - cpu).max())
+    if not (np.isfinite(gpu).all() and dl <= LOGIT_TOL and np.array_equal(gpu.argmax(1), cpu.argmax(1))):
+        raise AssertionError(f"CLI-trained LSTM card vs cpu: max |delta logit| {dl}")
+    phase(f"7b train CLI --model lstm (hidden 48, 2 layers), 42 raw trials, 1 epoch on {dev}: {cli_s:.3f} s; "
+          f"launches {launches}; its .npz served card vs cpu, 16 windows: max |delta logit| {dl:.3e} "
+          f"(tol {LOGIT_TOL}), argmax equal")
+    return launches
+
+
+def _lstm_loss_grads(spec, init, x: np.ndarray, y: np.ndarray, device):
+    from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
+    from neural_speech_decoding_tpu_torch.train.loop import _leaves, _loss_fn
+
+    params = params_from_jax(init, device)
+    leaves = [(path, t.requires_grad_(True)) for path, t in _leaves(params)]
+    xt, yt = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    loss, _ = _loss_fn(params, xt, yt, torch.Generator(device=device), spec.apply, 0.1, None)
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    return float(loss.detach()), {path: g.cpu().numpy() for (path, _), g in zip(leaves, grads)}
+
+
+def _route_grad(fn, x: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    xr = x.detach().clone().requires_grad_(True)
+    out = fn(xr)
+    (out[0] if isinstance(out, tuple) else out).backward(ct)
+    return xr.grad
+
+
+def check_gradients(dev, smi: str) -> None:
+    """7c: one full-width LSTM step (hidden 48, 2 layers, T 625, batch 32)
+    in deterministic train mode (dropout 0, RReLU slope fixed), gradients
+    card against CPU; the train step's time on the card; and autograd
+    through the three kernel routes (band grams, Clenshaw, the logcov
+    kernel route) against autograd through their twins on the card, each
+    forward launching its kernel."""
+    from neural_speech_decoding_tpu_torch.models import logcov
+    from neural_speech_decoding_tpu_torch.models.registry import get_model
+    from neural_speech_decoding_tpu_torch.ops import kernels, spd
+    from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams, band_grams_plain
+    from neural_speech_decoding_tpu_torch.ops.kernels.logm import logm_spd_chebyshev
+    from neural_speech_decoding_tpu_torch.train.loop import Optimizer, TrainConfig, _leaves, make_train_step
+
+    ds = golden_three_class()
+    x, y = ds.windows[:32], ds.labels[:32]
+    spec = get_model("lstm", dropout=0.0, rrelu_lower=0.2, rrelu_upper=0.2)
+    init = spec.init(torch.Generator().manual_seed(0))
+    t = time.perf_counter()
+    gpu_loss, gpu = _lstm_loss_grads(spec, init, x, y, dev)
+    gpu_s = time.perf_counter() - t
+    cpu_loss, cpu = _lstm_loss_grads(spec, init, x, y, torch.device("cpu"))
+    worst = max(float(np.abs(gpu[k] - cpu[k]).max()) / max(1.0, float(np.abs(cpu[k]).max())) for k in cpu)
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"LSTM gradients card vs cpu: {worst} of max(1, max|g|) > {GRAD_TOL}")
+    phase(f"7c full-width LSTM loss and gradients, batch 32, card vs cpu: loss {gpu_loss:.6f} vs {cpu_loss:.6f}; "
+          f"max |delta g| {worst:.3e} of max(1, max|g|) over {len(cpu)} leaves (tol {GRAD_TOL}); "
+          f"first card call {gpu_s:.3f} s")
+
+    # the train step at the served config (dropout 0.6, RReLU sampled)
+    train_spec = get_model("lstm")
+    params = train_spec.init(torch.Generator(device=dev).manual_seed(0))
+    for _, leaf in _leaves(params):
+        leaf.requires_grad_(True)
+    step = make_train_step(train_spec, Optimizer(params, TrainConfig()), label_smoothing=0.1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).long().to(dev)
+    step(params, xt, yt, gen)
+    torch.cuda.synchronize()
+    reps = 3
+    t = time.perf_counter()
+    for _ in range(reps):
+        step(params, xt, yt, gen)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / reps
+    fwd_ms = cuda_ms(lambda: train_spec.apply(params, xt, train=True, generator=gen), 2)
+    phase(f"7c LSTM train step (hidden 48, 2 layers, T 625, batch 32, dropout 0.6) on {dev} ({smi}): "
+          f"{step_s * 1e3:.1f} ms a step = {1.0 / step_s:.3f} steps/s = {32.0 / step_s:.1f} windows/s "
+          f"(mean of {reps}); train-mode forward alone {fwd_ms:.1f} ms")
+
+    # autograd through the kernel routes against the twins, on the card
+    cfg = get_model("logcov8", **FLAGSHIP_KW).config
+    xw = torch.from_numpy(ds.windows[:64]).to(dev)
+    w0 = logcov.fit_whitener(logcov.init_logcov_params(torch.Generator(device=dev), cfg), xw, cfg=cfg)["whitener"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    k = logcov.kernel_inputs(xw, w0, cfg)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    s = logcov.band_covariances(xw, dataclasses.replace(cfg, whiten=False))
+    routes = (
+        ("bandcov_grams", "band_grams", lambda v: band_grams(v, k.offsets),
+         lambda v: band_grams_plain(v, k.offsets), k.yw),
+        ("logm_clenshaw", "logm_spd_chebyshev", lambda v: logm_spd_chebyshev(v, coeffs, lo, hi),
+         lambda v: spd.logm_chebyshev(v, coeffs, lo, hi), s),
+        ("logcov_feats", "the logcov kernel route", lambda v: logcov._fused_kernel_feats(v, w0, cfg),
+         lambda v: logcov._stages_feats_reference(v, w0, cfg), xw),
+    )
+    for counter, label, kernel_fn, twin_fn, inp in routes:
+        with torch.no_grad():
+            ct = torch.randn(twin_fn(inp).shape, generator=gen, device=dev)
+        kernels.reset_launches()
+        g_kernel = _route_grad(kernel_fn, inp, ct)
+        launched = kernels.launches()[counter]
+        g_twin = _route_grad(twin_fn, inp, ct)
+        rel = float((g_kernel - g_twin).abs().max() / g_twin.abs().max())
+        if launched < 1 or not torch.isfinite(g_kernel).all() or not rel <= ROUTE_GRAD_TOL:
+            raise AssertionError(f"{label} backward on the card: {counter} launches {launched}, rel {rel}")
+        phase(f"7c autograd through {label} on {dev}, {tuple(inp.shape)}: {counter} launched {launched}x in the "
+              f"forward; gradient vs the twin's {rel:.3e} of its max (tol {ROUTE_GRAD_TOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1262,6 +1494,11 @@ def main() -> int:
     rec_launches = check_recording(dev)
     tcn_trial_launches = check_tcn_trials()
 
+    # 7. training on the card
+    train_launches = train_flagship(dev, windows[:16], smi)
+    cli_launches = train_cli(dev, windows[:16])
+    check_gradients(dev, smi)
+
     # 6. report
     k_ms, p_ms, bound, by = times[TIMED[-1]]
     phase(f"kernel times below are at B={TIMED[-1]} (batch {TIMED[0]}: kernel {times[TIMED[0]][0]:.4f} ms, "
@@ -1270,7 +1507,8 @@ def main() -> int:
         return sum(run[name] for run in [main_launches, trial_launches, flagship_launches,
                                          flagship_trial_launches, cheb_launches, cheb_trial_launches,
                                          unw_launches, iir_launches, mix_launches, rec_launches,
-                                         tcn_trial_launches] + family_launches)
+                                         tcn_trial_launches, train_launches, cli_launches]
+                   + family_launches)
 
     logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
                               iir_cascade=iir_times[TIMED[0]])

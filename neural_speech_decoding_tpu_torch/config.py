@@ -2,12 +2,10 @@
 
 Counterpart of neural_speech_decoding_tpu/config.py:14-140: the filter,
 the pipeline (window geometry, `trials` per snapshot, the 3- and 5-class
-names, `five_class_pipeline`) and the LSTM's decoder config. Of the LSTM's
-fields only those the port reads are kept: it runs the streaming
-two-layer eval scan in float32, with its shapes taken from the parameters
-(no bf16 turbo, no per-layer or training path, so no dropout, yet). The
-other families' configs live beside their models (models/eegnet.py,
-tcn.py, transformer.py, lru.py, logcov.py) and equal the JAX package's.
+names and filename prefixes, `five_class_pipeline`) and the LSTM's
+decoder config, with every field of the JAX DecoderConfig. The other
+families' configs live beside their models (models/eegnet.py, tcn.py,
+transformer.py, lru.py, logcov.py) and equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,6 +17,10 @@ from typing import Tuple
 # 0=Food, 1=Water, 2=Background.
 THREE_CLASS_NAMES: Tuple[str, ...] = ("Food", "Water", "BG-Noise")
 FIVE_CLASS_NAMES: Tuple[str, ...] = ("Food", "Water", "BG-Noise", "Yes", "No")
+
+# Trial CSV filename prefixes -> class index, per class set.
+THREE_CLASS_PREFIXES: Tuple[str, ...] = ("food", "water", "backgroundnoise")
+FIVE_CLASS_PREFIXES: Tuple[str, ...] = ("food", "water", "backgroundnoise", "yes", "no")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,18 +44,49 @@ class FilterConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """LSTM decoder hyperparameters of the eval path. The gates are always
-    the rational tanh/sigmoid of ops/gates.py, as the JAX package evaluates
-    them by default. The shipped
-    checkpoints fix the shapes (input 8, hidden 48, 2 layers, attention
-    pooling + LayerNorm + Linear(48,32) -> RReLU -> Linear(32,classes));
-    the decoder reads them from the parameters and checks num_classes."""
+    """LSTM decoder hyperparameters (JAX config.py:48-125).
 
+    The shipped checkpoints fix the shapes (input 8, hidden 48, 2 layers,
+    attention pooling + LayerNorm + Linear(48,32) -> RReLU -> Dropout ->
+    Linear(32,classes)); the decoder reads them from the parameters and
+    checks num_classes, and `init_decoder_params` builds them from these
+    fields. Dropout acts in train mode only: between the LSTM layers (not
+    after the last) and after the RReLU.
+    """
+
+    input_size: int = 8
+    hidden_size: int = 48
+    num_layers: int = 2
     num_classes: int = 3
-    # torch nn.RReLU bounds; eval mode uses the mean slope (1/8 + 1/3) / 2.
+    dropout: float = 0.60
+    # torch nn.RReLU bounds; eval mode uses the mean slope (1/8 + 1/3) / 2,
+    # train mode samples the slope from U(lower, upper) per element.
     rrelu_lower: float = 1.0 / 8.0
     rrelu_upper: float = 1.0 / 3.0
     layernorm_eps: float = 1e-5
+    # dtype of the recurrence (recurrent matmul and gate math): "float32",
+    # or "bfloat16", the turbo mode. The input projection, the attention
+    # and the head stay float32.
+    recurrence_dtype: str = "float32"
+    # "rational": the ~1-ulp float32 tanh/sigmoid of ops/gates.py (other
+    # dtypes take torch's builtins); "builtin": torch.tanh / torch.sigmoid.
+    gate_math: str = "rational"
+    # Eval mode, two layers, float32: with both on, the streaming step loop
+    # (both layers and the attention pooling in one loop, no [T, B, H]
+    # intermediates). Off, or in train mode, at another depth or in
+    # bfloat16: the per-layer recurrence.
+    fused_scan: bool = True
+    streaming_scan: bool = True
+    # lax.scan unroll factors of the JAX package (training and streaming
+    # eval scans). They are XLA compile knobs: the port accepts them and
+    # they change nothing in its eager loops.
+    scan_unroll: int = 1
+    eval_scan_unroll: int = 4
+    # Train-time rematerialisation: split each layer's T steps into this
+    # many chunks under torch.utils.checkpoint, so that backward keeps one
+    # carry a chunk and recomputes the chunk's steps. 0 or 1 disables; it
+    # must divide T. It changes no value and no gradient.
+    remat_chunks: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +104,6 @@ class PipelineConfig:
     @property
     def window_samples(self) -> int:
         return max(1, int(self.window_seconds * self.sample_rate))
-
 
 
 def five_class_pipeline() -> PipelineConfig:

@@ -30,8 +30,18 @@ matching mode. Everything else takes the stages path below, whose grams
 and whose logm="chebyshev" goes through the Clenshaw kernel (ops/kernels/
 logm.py). Each wrapper launches its CUDA kernel for a CUDA tensor and takes
 its plain twin for a CPU tensor. logm="chebyshev_scan" is the plain Clenshaw
-recurrence on every device, as in JAX. Only the eval path is here:
-`fit_whitener` and training are still to port (ROADMAP.md).
+recurrence on every device, as in JAX.
+
+Training (JAX models/logcov.py:143-179, 576-612, 705-733):
+`init_logcov_params` and `fit_whitener` (the per-band G^-1/2 of the mean
+shrunk covariance of the training windows); `logcov_head_apply` drops out
+the normalised features in train mode. The whitener is a fitted buffer,
+not a weight: the features see it detached, as JAX's stop_gradient. The
+kernel route is a torch.autograd.Function whose forward is the two kernels
+and whose backward recomputes the features through the differentiable
+stages path (`_stages_feats_reference`, as JAX's custom VJP does), with a
+zero gradient for the whitener; the gram and Clenshaw wrappers carry their
+own backward the same way (ops/kernels/bandcov.py, logm.py).
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from neural_speech_decoding_tpu_torch.models.stochastic import dropout, require_generator
 from neural_speech_decoding_tpu_torch.ops import spd
 from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams
 from neural_speech_decoding_tpu_torch.ops.kernels.logm import logm_spd_chebyshev
@@ -92,6 +103,40 @@ class LogCovConfig:
 def _num_features(cfg: LogCovConfig) -> int:
     c = cfg.num_channels
     return len(cfg.bands) * (c * (c + 1)) // 2
+
+
+def init_logcov_params(generator: torch.Generator, cfg: LogCovConfig) -> Params:
+    """LayerNorm scale 1 and bias 0, a normal head scaled by sqrt(1/n), a
+    zero head bias (JAX :143-166), and with cfg.whiten the identity
+    whitener [nb, C, C] until `fit_whitener` runs; float32 on the
+    generator's device."""
+    n = _num_features(cfg)
+    dev = generator.device
+    params = {
+        "ln": {"scale": torch.ones(n, device=dev), "bias": torch.zeros(n, device=dev)},
+        "head": {
+            "w": torch.randn((n, cfg.num_classes), generator=generator, device=dev) * float(np.sqrt(1.0 / n)),
+            "b": torch.zeros(cfg.num_classes, device=dev),
+        },
+    }
+    if cfg.whiten:
+        eye = torch.eye(cfg.num_channels, device=dev)
+        params["whitener"] = eye.expand(len(cfg.bands), -1, -1).contiguous()
+    return params
+
+
+def fit_whitener(params: Params, x_btc, y=None, *, cfg: LogCovConfig) -> Params:
+    """The tangent-point whitener G^-1/2 per band, G the mean shrunk band
+    covariance of the TRAINING windows x_btc (JAX :169-179), by a float32
+    eigendecomposition as JAX takes it. Returns params with "whitener" set;
+    the windows go to the device of params' head."""
+    dev = params["head"]["w"].device
+    x = torch.as_tensor(x_btc, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        g = band_covariances(x, cfg).mean(dim=0)  # [nb, C, C]
+        w, v = torch.linalg.eigh(g)
+        inv_sqrt = torch.matmul(v * (1.0 / torch.sqrt(torch.clamp(w, min=1e-12)))[:, None, :], v.transpose(-1, -2))
+    return {**params, "whitener": inv_sqrt.to(torch.float32)}
 
 
 @functools.lru_cache(maxsize=8)
@@ -311,17 +356,65 @@ def kernel_inputs(x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig) -> K
     )
 
 
-def _fused_kernel_feats(
-    x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel route: band-gram pair rows [B, nb*36] from the gram
-    kernel, then shrinkage, guard, rational or Chebyshev logm and triu
+def _kernel_route(x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel route's forward: band-gram pair rows [B, nb*36] from the
+    gram kernel, then shrinkage, guard, rational or Chebyshev logm and triu
     features in the feature kernel. Returns (feats [B, nb*36], flags [B]
     bool). On a CPU tensor the two wrappers take their plain twins."""
     k = kernel_inputs(x_btc, w0, cfg)
     grams = band_grams(k.yw, k.offsets)
     feats, band_flags = logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
     return feats, band_flags.any(dim=1)
+
+
+def _stages_feats_reference(x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig) -> torch.Tensor:
+    """The same features through the differentiable stages path (JAX
+    :576-591): whitened covariances, guard, the plain rational or Chebyshev
+    log, weighted triu. The kernel route's backward recomputes through it."""
+    s = _whitened_band_covariances_fused(x_btc, cfg, w0)
+    s, _ = guard_spectrum(s, cfg)
+    if cfg.logm == "rational":
+        logm = _logm_spd_rational(s, cfg)
+    else:
+        lo, hi = cfg.cheb_interval
+        logm = spd.logm_chebyshev(s, _cheb_log_coeffs(lo, hi, cfg.cheb_degree), lo, hi)
+    return spd.triu_features(logm)
+
+
+class _KernelRouteFeats(torch.autograd.Function):
+    """The kernel route with JAX's custom VJP (:594-612): the forward is
+    the two kernels; the backward recomputes the features from the saved
+    windows through `_stages_feats_reference` under autograd and pulls the
+    cotangent back through it. The flags are not differentiable, and the
+    whitener (a fitted buffer) gets a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x_btc, w0, cfg):
+        ctx.save_for_backward(x_btc, w0)
+        ctx.cfg = cfg
+        feats, flags = _kernel_route(x_btc, w0, cfg)
+        ctx.mark_non_differentiable(flags)
+        return feats, flags
+
+    @staticmethod
+    def backward(ctx, g_feats, g_flags):
+        x_btc, w0 = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            with torch.enable_grad():
+                x = x_btc.detach().requires_grad_(True)
+                feats = _stages_feats_reference(x, w0.detach(), ctx.cfg)
+                (dx,) = torch.autograd.grad(feats, x, g_feats)
+        dw = torch.zeros_like(w0) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def _fused_kernel_feats(
+    x_btc: torch.Tensor, w0: torch.Tensor, cfg: LogCovConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel route, differentiable in x_btc: (feats [B, nb*36],
+    flags [B] bool)."""
+    return _KernelRouteFeats.apply(x_btc, w0, cfg)
 
 
 def logcov_features(
@@ -335,6 +428,9 @@ def logcov_features(
     `with_flags`, the per-window guard flags [B] bool). Dispatch as JAX
     models/logcov.py:615-700 does on the TPU."""
     x = x_btc.to(torch.float32)
+    if whitener is not None:
+        # a fitted buffer, not a weight (JAX: stop_gradient)
+        whitener = whitener.detach()
     if whitener is not None and cfg.spectral == "matmul":
         w0 = whitener.to(device=x.device, dtype=torch.float32)
         if cfg.fused == "kernel" and cfg.logm in ("chebyshev", "rational") and cfg.guard_domain:
@@ -368,22 +464,49 @@ def logcov_features(
     return feats
 
 
-def logcov_head_apply(params: Params, feats: torch.Tensor, cfg: LogCovConfig = LogCovConfig()) -> torch.Tensor:
-    """LayerNorm + linear head on precomputed features (eval mode: no
-    dropout) -> logits [B, num_classes]."""
+def logcov_head_apply(
+    params: Params,
+    feats: torch.Tensor,
+    cfg: LogCovConfig = LogCovConfig(),
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """LayerNorm + dropout (train mode, a mask from `generator`) + linear
+    head on precomputed features -> logits [B, num_classes]."""
+    require_generator(train, generator)
     mean = feats.mean(dim=-1, keepdim=True)
     var = torch.square(feats - mean).mean(dim=-1, keepdim=True)  # biased
     f = (feats - mean) / torch.sqrt(var + cfg.ln_eps)
     f = f * params["ln"]["scale"] + params["ln"]["bias"]
+    if train:
+        f = dropout(f, cfg.dropout, generator)
     return f @ params["head"]["w"] + params["head"]["b"]
 
 
 def logcov_apply_ex(
-    params: Params, x_btc: torch.Tensor, cfg: LogCovConfig = LogCovConfig()
+    params: Params,
+    x_btc: torch.Tensor,
+    cfg: LogCovConfig = LogCovConfig(),
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(logits [B, classes], {"domain_flags": [B] bool}), eval mode.
+    """(logits [B, classes], {"domain_flags": [B] bool}).
     Whitening keys off the checkpoint: params holding a "whitener" are
     always served whitened, whatever cfg.whiten says."""
+    require_generator(train, generator)
     feats, flags = logcov_features(x_btc, cfg, whitener=params.get("whitener"), with_flags=True)
-    return logcov_head_apply(params, feats, cfg), {"domain_flags": flags}
+    logits = logcov_head_apply(params, feats, cfg, train=train, generator=generator)
+    return logits, {"domain_flags": flags}
 
+
+def logcov_apply(
+    params: Params,
+    x_btc: torch.Tensor,
+    cfg: LogCovConfig = LogCovConfig(),
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    return logcov_apply_ex(params, x_btc, cfg, train=train, generator=generator)[0]

@@ -1,4 +1,4 @@
-"""Linear Recurrent Unit (LRU) decoder, eval path.
+"""Linear Recurrent Unit (LRU) decoder.
 
 Counterpart of neural_speech_decoding_tpu/models/lru.py:46-251. A diagonal
 complex linear recurrence h_t = lam h_{t-1} + u_t, with
@@ -15,20 +15,25 @@ gamma = sqrt(1 - |lam|^2), all in complex64. Two engines
     engine's test oracle).
 
 Readout: Re(h C) -> tanh-GELU -> attention pooling over time -> LayerNorm
-(mean of squares) -> tanh-GELU MLP.
+(mean of squares) -> tanh-GELU MLP, with dropout before the last linear in
+train mode.
 
-No LRU checkpoint is shipped; `random_lru_params` draws parameters of the
-JAX init's shapes and distributions with numpy, from a seed.
+No LRU checkpoint is shipped. `init_lru_params` draws the JAX init's
+shapes and distributions from a torch.Generator; `random_lru_params` draws
+them with numpy from a seed, for a card run and its CPU check.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from neural_speech_decoding_tpu_torch.models.stochastic import dropout, require_generator
 
 Params = Dict[str, Any]
 
@@ -49,6 +54,37 @@ class LRUConfig:
     # chunk length of the chunked engine; None picks the largest divisor
     # of T that is <= 128
     chunk: Optional[int] = None
+
+
+def init_lru_params(generator: torch.Generator, cfg: LRUConfig = LRUConfig()) -> Params:
+    """The JAX init (models/lru.py:75-133) from `generator`: eigenvalue
+    moduli area-uniform on the ring [r_min, r_max], phases uniform in
+    [0, max_phase), Gaussian B, C and head weights; float32 on the
+    generator's device."""
+    h, c, r = cfg.hidden, cfg.num_channels, cfg.readout
+    dev = generator.device
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=generator, device=dev) * scale
+
+    u = torch.rand(h, generator=generator, device=dev)
+    mod = torch.sqrt(u * (cfg.r_max**2 - cfg.r_min**2) + cfg.r_min**2)
+    phase = torch.rand(h, generator=generator, device=dev) * cfg.max_phase
+    return {
+        "nu": torch.log(-torch.log(mod)),
+        "theta": torch.log(torch.clamp(phase, min=1e-4)),
+        "b_re": normal((c, h), math.sqrt(1.0 / c)),
+        "b_im": normal((c, h), math.sqrt(1.0 / c)),
+        "c_re": normal((h, r), math.sqrt(1.0 / h)),
+        "c_im": normal((h, r), math.sqrt(1.0 / h)),
+        "ln": {"scale": torch.ones(r, device=dev), "bias": torch.zeros(r, device=dev)},
+        "attn": {"w": normal((r, 1), math.sqrt(1.0 / r)), "b": torch.zeros(1, device=dev)},
+        "fc1": {"w": normal((r, cfg.mlp_hidden), math.sqrt(2.0 / r)), "b": torch.zeros(cfg.mlp_hidden, device=dev)},
+        "fc2": {
+            "w": normal((cfg.mlp_hidden, cfg.num_classes), math.sqrt(1.0 / cfg.mlp_hidden)),
+            "b": torch.zeros(cfg.num_classes, device=dev),
+        },
+    }
 
 
 def random_lru_params(seed: int, cfg: LRUConfig = LRUConfig()) -> Params:
@@ -160,8 +196,17 @@ def _lru_states(params: Params, x_btc: torch.Tensor, cfg: LRUConfig) -> torch.Te
     raise ValueError(f"unknown scan_impl {cfg.scan_impl!r}")
 
 
-def lru_apply(params: Params, x_btc: torch.Tensor, cfg: LRUConfig = LRUConfig()) -> torch.Tensor:
-    """[B, T, C] -> logits [B, num_classes], eval mode (no dropout)."""
+def lru_apply(
+    params: Params,
+    x_btc: torch.Tensor,
+    cfg: LRUConfig = LRUConfig(),
+    *,
+    train: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """[B, T, C] -> logits [B, num_classes]; train mode drops out the MLP's
+    hidden layer with a mask drawn from `generator`."""
+    require_generator(train, generator)
     h = _lru_states(params, x_btc.to(torch.float32), cfg)
     cc = torch.complex(params["c_re"], params["c_im"])
     y = F.gelu((h @ cc).real, approximate="tanh")  # [B, T, readout]
@@ -172,4 +217,6 @@ def lru_apply(params: Params, x_btc: torch.Tensor, cfg: LRUConfig = LRUConfig())
     f = (pooled - mean) / torch.sqrt(var + cfg.ln_eps)
     f = f * params["ln"]["scale"] + params["ln"]["bias"]
     f = F.gelu(f @ params["fc1"]["w"] + params["fc1"]["b"], approximate="tanh")
+    if train:
+        f = dropout(f, cfg.dropout, generator)
     return f @ params["fc2"]["w"] + params["fc2"]["b"]

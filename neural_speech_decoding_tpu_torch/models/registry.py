@@ -1,22 +1,28 @@
 """Model registry: every decoder family of the JAX registry, by name.
 
-Counterpart of neural_speech_decoding_tpu/models/registry.py, in eval
-mode: the LSTM ("lstm", "lstm5"), EEGNet ("eegnet", "eegnet5"), the
-transformer ("transformer", "transformer5"), the TCN ("tcn", "tcn5",
-"tcn_small", "tcn_wide"), the LRU ("lru", "lru5") and the log-covariance
-family ("logcov", "logcov5", "logcov8", "logcov12", "logcov8_5",
-"logcov12_5"). A ModelSpec carries the family's config and class names and
+Counterpart of neural_speech_decoding_tpu/models/registry.py:33-290: the
+LSTM ("lstm", "lstm5"), EEGNet ("eegnet", "eegnet5"), the transformer
+("transformer", "transformer5"), the TCN ("tcn", "tcn5", "tcn_small",
+"tcn_wide"), the LRU ("lru", "lru5") and the log-covariance family
+("logcov", "logcov5", "logcov8", "logcov12", "logcov8_5", "logcov12_5").
+A ModelSpec carries the family's config and class names and
 
-  apply(params, x_btc) -> logits [B, classes]
+  init(generator) -> params (float32 tensors on the generator's device)
+  apply(params, x_btc, *, train=False, generator=None) -> logits [B, classes]
 
 and a logcov spec also
 
-  apply_ex(params, x_btc) -> (logits, {"domain_flags": [B] bool})
+  fit(params, x_train, y_train) -> params with the fitted whitener
+      (whiten=True only; training windows only, never evaluation data)
+  apply_ex(params, x_btc, *, train, generator) -> (logits, {"domain_flags": [B] bool})
+  featurize(params, x_btc) -> feats, parameter-free (the whitener is a
+      fitted buffer), so training runs in head space after one featurize
   featurize_ex(params, x_btc) -> (feats, flags)
-  head_apply(params, feats) -> logits
+  head_apply(params, feats, *, train, generator) -> logits
 
-(the engines run the LSTM through models/lstm.decoder_logits with the
-pipeline's decoder config, which may differ from the spec's).
+apply == head_apply(featurize(...)). Train mode draws its randomness from
+`generator`. The engines serve the LSTM through models/lstm.decoder_logits
+with the pipeline's decoder config, which may differ from the spec's.
 """
 
 from __future__ import annotations
@@ -33,9 +39,9 @@ from neural_speech_decoding_tpu_torch.config import (
 from neural_speech_decoding_tpu_torch.models import eegnet as _eegnet
 from neural_speech_decoding_tpu_torch.models import logcov as _logcov
 from neural_speech_decoding_tpu_torch.models import lru as _lru
+from neural_speech_decoding_tpu_torch.models import lstm as _lstm
 from neural_speech_decoding_tpu_torch.models import tcn as _tcn
 from neural_speech_decoding_tpu_torch.models import transformer as _transformer
-from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,25 +49,18 @@ class ModelSpec:
     name: str
     config: Any
     class_names: Tuple[str, ...]
+    init: Callable[..., Any]
     apply: Callable[..., Any]
+    fit: Optional[Callable[..., Any]] = None
     apply_ex: Optional[Callable[..., Any]] = None
+    featurize: Optional[Callable[..., Any]] = None
     featurize_ex: Optional[Callable[..., Any]] = None
     head_apply: Optional[Callable[..., Any]] = None
 
 
-def _lstm_spec(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpec:
-    cfg = DecoderConfig(num_classes=num_classes, **cfg_kw)
-    return ModelSpec(
-        name=name,
-        config=cfg,
-        class_names=tuple(class_names),
-        apply=lambda p, x: decoder_logits(p, x, cfg),
-    )
-
-
-def _plain_spec(config_cls, apply_fn) -> Callable[..., ModelSpec]:
-    """Spec factory of a family whose spec has only `apply`: EEGNet, the TCN,
-    the transformer and the LRU."""
+def _plain_spec(config_cls, init_fn, apply_fn) -> Callable[..., ModelSpec]:
+    """Spec factory of a family whose spec has only `init` and `apply`: the
+    LSTM, EEGNet, the TCN, the transformer and the LRU."""
 
     def make(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpec:
         cfg = config_cls(num_classes=num_classes, **cfg_kw)
@@ -69,16 +68,22 @@ def _plain_spec(config_cls, apply_fn) -> Callable[..., ModelSpec]:
             name=name,
             config=cfg,
             class_names=tuple(class_names),
-            apply=lambda p, x: apply_fn(p, x, cfg),
+            init=lambda generator: init_fn(generator, cfg),
+            apply=lambda p, x, *, train=False, generator=None: apply_fn(
+                p, x, cfg, train=train, generator=generator
+            ),
         )
 
     return make
 
 
-_eegnet_spec = _plain_spec(_eegnet.EEGNetConfig, _eegnet.eegnet_apply)
-_tcn_spec = _plain_spec(_tcn.TCNConfig, _tcn.tcn_apply)
-_transformer_spec = _plain_spec(_transformer.TransformerConfig, _transformer.transformer_apply)
-_lru_spec = _plain_spec(_lru.LRUConfig, _lru.lru_apply)
+_lstm_spec = _plain_spec(DecoderConfig, _lstm.init_decoder_params, _lstm.decoder_apply)
+_eegnet_spec = _plain_spec(_eegnet.EEGNetConfig, _eegnet.init_eegnet_params, _eegnet.eegnet_apply)
+_tcn_spec = _plain_spec(_tcn.TCNConfig, _tcn.init_tcn_params, _tcn.tcn_apply)
+_transformer_spec = _plain_spec(
+    _transformer.TransformerConfig, _transformer.init_transformer_params, _transformer.transformer_apply
+)
+_lru_spec = _plain_spec(_lru.LRUConfig, _lru.init_lru_params, _lru.lru_apply)
 
 
 def _logcov_spec(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpec:
@@ -87,12 +92,21 @@ def _logcov_spec(name: str, num_classes: int, class_names, **cfg_kw) -> ModelSpe
         name=name,
         config=cfg,
         class_names=tuple(class_names),
-        apply=lambda p, x: _logcov.logcov_apply_ex(p, x, cfg)[0],
-        apply_ex=lambda p, x: _logcov.logcov_apply_ex(p, x, cfg),
+        init=lambda generator: _logcov.init_logcov_params(generator, cfg),
+        apply=lambda p, x, *, train=False, generator=None: _logcov.logcov_apply(
+            p, x, cfg, train=train, generator=generator
+        ),
+        fit=(lambda p, x, y=None: _logcov.fit_whitener(p, x, y, cfg=cfg)) if cfg.whiten else None,
+        apply_ex=lambda p, x, *, train=False, generator=None: _logcov.logcov_apply_ex(
+            p, x, cfg, train=train, generator=generator
+        ),
+        featurize=lambda p, x: _logcov.logcov_features(x, cfg, whitener=p.get("whitener")),
         featurize_ex=lambda p, x: _logcov.logcov_features(
             x, cfg, whitener=p.get("whitener"), with_flags=True
         ),
-        head_apply=lambda p, f: _logcov.logcov_head_apply(p, f, cfg),
+        head_apply=lambda p, f, *, train=False, generator=None: _logcov.logcov_head_apply(
+            p, f, cfg, train=train, generator=generator
+        ),
     )
 
 

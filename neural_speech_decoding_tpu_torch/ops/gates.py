@@ -1,12 +1,13 @@
 """Accurate float32 gate activations for the LSTM recurrence.
 
-Counterpart of neural_speech_decoding_tpu/ops/gates.py:29-113. The JAX
-package evaluates tanh and sigmoid as a 13/6-degree odd minimax rational
-(tanh(x) = x P(x^2) / Q(x^2), clamped where f32 tanh has saturated), built
-from multiplies, adds and one divide; max abs error ~4e-7. The port
-evaluates the same rational with the same operation order, so the two
-packages agree to the last few ulps instead of to the distance between two
-tanh implementations compounded over 625 recurrent steps.
+Counterpart of neural_speech_decoding_tpu/ops/gates.py:29-113, in both
+gate_math modes. The JAX package evaluates tanh and sigmoid as a
+13/6-degree odd minimax rational (tanh(x) = x P(x^2) / Q(x^2), clamped
+where f32 tanh has saturated), built from multiplies, adds and one divide;
+max abs error ~4e-7. The port evaluates the same rational with the same
+operation order, so the two packages agree to the last few ulps instead of
+to the distance between two tanh implementations compounded over 625
+recurrent steps.
 
 Only float32 takes the rational; other dtypes use torch's builtins.
 """
@@ -68,15 +69,29 @@ def sigmoid_fold_mask(h_dim: int, dtype=torch.float32, device=None) -> torch.Ten
     return m
 
 
-def lstm_gate_block(gates: torch.Tensor, h_dim: int):
+def lstm_gate_block(gates: torch.Tensor, h_dim: int, gate_math: str = "rational"):
     """(i, f, g, o) activations from one pre-activation block [..., 4H]
-    (torch gate order) whose i/f/o columns were pre-scaled with
-    sigmoid_fold_mask: one whole-block tanh covers all four gates."""
-    y = tanh(gates)
-    sig = 0.5 + 0.5 * y
+    (torch gate order). gate_math="rational" expects the i/f/o columns to
+    have been pre-scaled with sigmoid_fold_mask: one whole-block tanh covers
+    all four gates. "builtin" takes torch.sigmoid / torch.tanh on unscaled
+    gates."""
+    if gate_math == "rational":
+        y = tanh(gates)
+        sig = 0.5 + 0.5 * y
+        tg = y
+    elif gate_math == "builtin":
+        sig = torch.sigmoid(gates)
+        tg = torch.tanh(gates)
+    else:
+        raise ValueError(f"unknown gate_math {gate_math!r}")
     return (
         sig[..., 0 * h_dim : 1 * h_dim],
         sig[..., 1 * h_dim : 2 * h_dim],
-        y[..., 2 * h_dim : 3 * h_dim],
+        tg[..., 2 * h_dim : 3 * h_dim],
         sig[..., 3 * h_dim : 4 * h_dim],
     )
+
+
+def cell_tanh(x: torch.Tensor, gate_math: str = "rational") -> torch.Tensor:
+    """tanh of the cell state under the chosen gate_math."""
+    return tanh(x) if gate_math == "rational" else torch.tanh(x)

@@ -13,6 +13,11 @@ unscaled (callers apply 2/T^2 and the shrinkage). The layout is the TPU's
 the feature kernel (ops/kernels/logmfeats.py). The kernel
 (csrc/bandcov_grams.cu, plain nvcc, ctypes) runs for a CUDA tensor; the
 plain twin for a CPU tensor, and as the kernel's test oracle on the card.
+
+`band_grams` is a torch.autograd.Function: its forward is the kernel (the
+twin on the CPU) and its backward recomputes the pairs through the twin
+under autograd, as the JAX wrapper's custom VJP recomputes through its XLA
+grams (ops/pallas/bandcov.py:79-110).
 """
 
 from __future__ import annotations
@@ -81,12 +86,7 @@ def _check(y: torch.Tensor, offsets: Sequence[int]) -> None:
         raise ValueError(f"band offsets {tuple(offsets)} do not fit {y.shape[1]} rows")
 
 
-def band_grams(y: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
-    """[B, R, 8] float32 rows, nb + 1 band offsets -> [B, nb * 36] pair
-    sums. Launches the CUDA kernel for a CUDA tensor (and counts the
-    launch); takes the plain twin for a CPU tensor."""
-    offsets = tuple(int(o) for o in offsets)
-    _check(y, offsets)
+def _band_grams_forward(y: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
     if y.device.type == "cpu":
         return band_grams_plain(y, offsets)
     b, rows, _ = y.shape
@@ -106,3 +106,29 @@ def band_grams(y: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err} ({msg})")
     kernels.count_launch(NAME)
     return out
+
+
+class _BandGrams(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, offsets):
+        ctx.save_for_backward(y)
+        ctx.offsets = offsets
+        return _band_grams_forward(y, offsets)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        with torch.enable_grad():
+            yy = y.detach().requires_grad_(True)
+            (dy,) = torch.autograd.grad(band_grams_plain(yy, ctx.offsets), yy, grad)
+        return dy, None
+
+
+def band_grams(y: torch.Tensor, offsets: Sequence[int]) -> torch.Tensor:
+    """[B, R, 8] float32 rows, nb + 1 band offsets -> [B, nb * 36] pair
+    sums. Launches the CUDA kernel for a CUDA tensor (and counts the
+    launch); takes the plain twin for a CPU tensor. Differentiable in y:
+    the backward recomputes through the twin."""
+    offsets = tuple(int(o) for o in offsets)
+    _check(y, offsets)
+    return _BandGrams.apply(y, offsets)

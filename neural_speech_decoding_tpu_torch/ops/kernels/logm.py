@@ -15,6 +15,11 @@ the recurrence is the kernel's (csrc/logm_clenshaw.cu, plain nvcc, ctypes),
 for a CUDA tensor. The plain twin, ops/spd.logm_chebyshev (the JAX
 package's _logm_spd_chebyshev scan), runs for a CPU tensor and is the
 kernel's test oracle on the card.
+
+`logm_spd_chebyshev` is a torch.autograd.Function: its forward is the
+kernel (the twin on the CPU) and its backward recomputes the log through
+the plain Clenshaw scan under autograd, as the JAX wrapper's custom VJP
+recomputes through its XLA scan (ops/pallas/logm.py:119-136).
 """
 
 from __future__ import annotations
@@ -100,13 +105,34 @@ def clenshaw(t: torch.Tensor, coeffs: Sequence[float]) -> torch.Tensor:
     return out
 
 
-def logm_spd_chebyshev(s: torch.Tensor, coeffs: Sequence[float], lo: float, hi: float) -> torch.Tensor:
-    """[..., 8, 8] float32 SPD matrices -> their Chebyshev matrix logs, the
-    same shape. Launches the CUDA kernel for a CUDA tensor (and counts the
-    launch); takes the plain twin for a CPU tensor."""
-    _check(s, coeffs)
+def _logm_forward(s: torch.Tensor, coeffs: Sequence[float], lo: float, hi: float) -> torch.Tensor:
     if s.device.type == "cpu":
         return logm_spd_chebyshev_plain(s, coeffs, lo, hi)
     t, tr = spd.chebyshev_domain_map(s, lo, hi)
     out = clenshaw(t.reshape(-1, CHANNELS, CHANNELS), coeffs).reshape(s.shape)
     return out + torch.log(tr) * spd.eye_like(s)
+
+
+class _LogmChebyshev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, s, coeffs, lo, hi):
+        ctx.save_for_backward(s)
+        ctx.args = (coeffs, lo, hi)
+        return _logm_forward(s, coeffs, lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (s,) = ctx.saved_tensors
+        with torch.enable_grad():
+            ss = s.detach().requires_grad_(True)
+            (ds,) = torch.autograd.grad(logm_spd_chebyshev_plain(ss, *ctx.args), ss, grad)
+        return ds, None, None, None
+
+
+def logm_spd_chebyshev(s: torch.Tensor, coeffs: Sequence[float], lo: float, hi: float) -> torch.Tensor:
+    """[..., 8, 8] float32 SPD matrices -> their Chebyshev matrix logs, the
+    same shape. Launches the CUDA kernel for a CUDA tensor (and counts the
+    launch); takes the plain twin for a CPU tensor. Differentiable in s:
+    the backward recomputes through the twin."""
+    _check(s, coeffs)
+    return _LogmChebyshev.apply(s, tuple(float(c) for c in coeffs), float(lo), float(hi))

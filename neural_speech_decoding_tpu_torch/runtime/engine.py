@@ -21,6 +21,7 @@ caller passes `device="cpu"`; without CUDA they raise.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple
@@ -36,20 +37,11 @@ from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 from neural_speech_decoding_tpu_torch.models.registry import get_model
 from neural_speech_decoding_tpu_torch.ops.epoching import frame_signal, frame_times, num_frames
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
-from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, resolve_device
+from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, disable_tf32, resolve_device
 
 
 def _bucket(n: int) -> int:
     return 1 << max(0, math.ceil(math.log2(n)))
-
-
-def _disable_tf32() -> None:
-    """Full-f32 matmuls and convolutions: the JAX package runs every
-    matmul at Precision.HIGHEST, and TF32 keeps about three digits."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("could not disable TF32")
 
 
 def _serving_config(spec, model: str) -> PipelineConfig:
@@ -211,15 +203,17 @@ class InferenceEngine(_ServingBase):
         families); `params` a parameter pytree (numpy or tensor leaves)
         instead. `model` is a family of models/registry.py; `model_kw`
         overrides its config (e.g. whiten=True for a whitened logcov
-        checkpoint). `turbo`, `donate` and `mesh` are the JAX engine's
-        keywords; only their defaults are served."""
-        if turbo or donate or mesh is not None:
+        checkpoint). `turbo` runs the LSTM's recurrence in bfloat16, as the
+        JAX engine's does (no effect on other families). `donate` and
+        `mesh` are the JAX engine's keywords; only their defaults are
+        served."""
+        if donate or mesh is not None:
             raise NotImplementedError(
-                "turbo, donate and mesh are not ported yet (ROADMAP.md: mesh/turbo serving)"
+                "donate and mesh are not ported yet (ROADMAP.md: mesh serving, donate)"
             )
         self._spec = get_model(model, **(model_kw or {}))
         self.device = resolve_device(device)
-        _disable_tf32()
+        disable_tf32()
         if params is None:
             if model_path is None:
                 raise ValueError("need model_path or params")
@@ -240,6 +234,10 @@ class InferenceEngine(_ServingBase):
                 class_names=config.class_names,
                 filter=config.filter,
                 decoder=config.decoder,
+            )
+        if turbo:
+            config = dataclasses.replace(
+                config, decoder=dataclasses.replace(config.decoder, recurrence_dtype="bfloat16")
             )
         self.config = config
         self.class_names = tuple(class_names or config.class_names)

@@ -41,12 +41,11 @@ from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 from neural_speech_decoding_tpu_torch.models.registry import family_model_kw, get_model
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
 from neural_speech_decoding_tpu_torch.runtime.engine import (
-    _disable_tf32,
     _serving_config,
     _ServingBase,
     load_params,
 )
-from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, resolve_device
+from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, disable_tf32, resolve_device
 
 
 def _structure(tree):
@@ -200,7 +199,7 @@ class EnsembleEngine(_ServingBase):
             )
         self.combine = combine
         self.device = resolve_device(device)
-        _disable_tf32()
+        disable_tf32()
         if params_list is None:
             if not model_paths:
                 raise ValueError("need model_paths or params_list")

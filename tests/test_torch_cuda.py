@@ -979,3 +979,118 @@ def test_predict_batch_async_parks_flags(cuda):
     for _ in range(2):
         cpu.predict_batch(x.cpu().numpy())
     assert gpu.stats == cpu.stats and not gpu._parked
+
+
+# ---------------------------------------------------------------------------
+# training on the card (slice 5)
+# ---------------------------------------------------------------------------
+def _golden_windows(n: int) -> np.ndarray:
+    with np.load(REPO / "tests" / "golden" / "reference_filtered.npz", allow_pickle=False) as z:
+        return z["filtered"][:n]
+
+
+def _grad_of(fn, x: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    xr = x.detach().clone().requires_grad_(True)
+    out = fn(xr)
+    (out[0] if isinstance(out, tuple) else out).backward(ct)
+    return xr.grad
+
+
+def test_kernel_routes_backward_on_cuda(cuda):
+    """Gradients flow through band_grams, logm_spd_chebyshev and the logcov
+    kernel route on CUDA tensors: each forward launches its kernel (counted)
+    and each backward recomputes through its twin, so the gradient equals
+    the twin's own to rounding (1e-5 of its max)."""
+    cfg = get_model("logcov8", whiten=True, dropout=0.0).config
+    x = torch.from_numpy(_golden_windows(32)).to(cuda)
+    w0 = logcov.fit_whitener(logcov.init_logcov_params(torch.Generator(device=cuda), cfg), x, cfg=cfg)["whitener"]
+    k = logcov.kernel_inputs(x, w0, cfg)
+    lo, hi = cfg.cheb_interval
+    coeffs = logcov._cheb_log_coeffs(lo, hi, cfg.cheb_degree)
+    s = logcov.band_covariances(x, dataclasses.replace(cfg, whiten=False))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for counter, kernel_fn, twin_fn, inp in (
+        ("bandcov_grams", lambda v: band_grams(v, k.offsets), lambda v: band_grams_plain(v, k.offsets), k.yw),
+        ("logm_clenshaw", lambda v: logm_kernels.logm_spd_chebyshev(v, coeffs, lo, hi),
+         lambda v: spd.logm_chebyshev(v, coeffs, lo, hi), s),
+        ("logcov_feats", lambda v: logcov._fused_kernel_feats(v, w0, cfg),
+         lambda v: logcov._stages_feats_reference(v, w0, cfg), x),
+    ):
+        with torch.no_grad():
+            ct = torch.randn(twin_fn(inp).shape, generator=gen, device=cuda)
+        before = kernels.launches()[counter]
+        got = _grad_of(kernel_fn, inp, ct)
+        assert kernels.launches()[counter] >= before + 1, counter
+        want = _grad_of(twin_fn, inp, ct)
+        assert got.is_cuda and torch.isfinite(got).all(), counter
+        assert float((got - want).abs().max() / want.abs().max()) <= 1e-5, counter
+
+
+def test_lstm_gradients_cuda_match_cpu(cuda):
+    """One full-width LSTM (hidden 48, 2 layers) loss gradient on 8 golden
+    windows cut to T = 125, deterministic train mode, card against CPU:
+    every leaf within 1e-4 of max(1, max|g|), the CPU parity budget."""
+    from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
+    from neural_speech_decoding_tpu_torch.train.loop import _leaves, _loss_fn
+
+    spec = get_model("lstm", dropout=0.0, rrelu_lower=0.2, rrelu_upper=0.2)
+    init = spec.init(torch.Generator().manual_seed(0))
+    x = _golden_windows(8)[:, :125]
+    y = np.arange(8) % 3
+
+    def grads(dev):
+        p = params_from_jax(init, dev)
+        leaves = [t.requires_grad_(True) for _, t in _leaves(p)]
+        loss, _ = _loss_fn(p, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev), torch.Generator(device=dev),
+                           spec.apply, 0.1, (1.0, 2.0, 0.5))
+        return [g.cpu().numpy() for g in torch.autograd.grad(loss, leaves)]
+
+    for g, c in zip(grads(cuda), grads(torch.device("cpu"))):
+        assert np.abs(g - c).max() <= 1e-4 * max(1.0, float(np.abs(c).max()))
+
+
+def test_train_on_cuda_by_default(cuda):
+    """train() with no device trains on the card: the flagship recipe's
+    family on 60 golden trials (the band-gram and feature kernels featurize
+    both splits), the loss falls, and the parameters stay on the card."""
+    from neural_speech_decoding_tpu_torch.config import THREE_CLASS_PREFIXES
+    from neural_speech_decoding_tpu_torch.io.dataset import TrialDataset
+    from neural_speech_decoding_tpu_torch.train.loop import TrainConfig, _leaves, train
+
+    with np.load(REPO / "tests" / "golden" / "reference_filtered.npz", allow_pickle=False) as z:
+        files = [str(f) for f in z["files"]]
+        keep = [i for i, f in enumerate(files) if f.split("_")[0] in THREE_CLASS_PREFIXES][::3]
+        windows = z["filtered"][keep]
+    labels = np.asarray([THREE_CLASS_PREFIXES.index(files[i].split("_")[0]) for i in keep], np.int32)
+    ds = TrialDataset(windows, labels, THREE_CLASS_PREFIXES, tuple(files[i] for i in keep))
+    kernels.reset_launches()
+    params, hist = train(ds, model="logcov8", model_kw={"whiten": True, "dropout": 0.0},
+                         train_cfg=TrainConfig(epochs=10, batch_size=16, label_smoothing=0.1, augment_prob=0.5),
+                         preprocessed=windows, verbose=False)
+    launches = kernels.launches()
+    assert launches["bandcov_grams"] >= 2 and launches["logcov_feats"] >= 2
+    assert hist[-1]["train_loss"] < hist[0]["train_loss"]
+    assert all(t.is_cuda for _, t in _leaves(params))
+
+
+def test_turbo_and_depth_on_cuda(cuda):
+    """The per-layer recurrence on the card: the bfloat16 turbo engine
+    keeps the float32 argmax on board-like windows, within JAX's documented
+    turbo-vs-f32 figure (2.6e-1); a three-layer decoder agrees with the
+    CPU within 1e-4."""
+    from neural_speech_decoding_tpu_torch.config import DecoderConfig
+    from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
+    from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits, init_decoder_params
+
+    path = str(REPO / "checkpoints" / "lstm3_retrained.npz")
+    x = _board_windows(16, 3)
+    f32 = InferenceEngine(path).logits_batch(x)
+    turbo = InferenceEngine(path, turbo=True).logits_batch(x)
+    np.testing.assert_array_equal(turbo.argmax(1), f32.argmax(1))
+    assert np.abs(turbo - f32).max() <= 2.6e-1
+    cfg = DecoderConfig(num_layers=3)
+    p = init_decoder_params(torch.Generator().manual_seed(2), cfg)
+    xf = torch.from_numpy(_golden_windows(8))
+    gpu = decoder_logits(params_from_jax(p, cuda), xf.to(cuda), cfg).cpu().numpy()
+    cpu = decoder_logits(p, xf, cfg).numpy()
+    assert np.abs(gpu - cpu).max() <= 1e-4

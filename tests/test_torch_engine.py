@@ -126,11 +126,19 @@ def test_engine_refusals(monkeypatch):
 
 def test_engine_takes_the_jax_keywords():
     """turbo, donate and mesh, as the JAX InferenceEngine takes them: the
-    defaults serve as before, any other value raises NotImplementedError
-    naming ROADMAP.md (never TypeError)."""
+    defaults serve as before; turbo serves the LSTM with a bfloat16
+    recurrence, as JAX's does (same argmax here); donate or mesh other than
+    the default raises NotImplementedError naming ROADMAP.md (never
+    TypeError)."""
     engine = InferenceEngine(str(NPZ3), turbo=False, donate=False, mesh=None, device="cpu")
-    assert engine.predict_batch(raw_windows(2, 4)).shape == (2, 3)
-    for kw in ({"turbo": True}, {"donate": True}, {"mesh": object()}):
+    x = raw_windows(2, 4)
+    probs = engine.predict_batch(x)
+    assert probs.shape == (2, 3)
+    turbo = InferenceEngine(str(NPZ3), turbo=True, device="cpu")
+    assert turbo.config.decoder.recurrence_dtype == "bfloat16"
+    assert engine.config.decoder.recurrence_dtype == "float32"
+    np.testing.assert_array_equal(turbo.predict_batch(x).argmax(1), probs.argmax(1))
+    for kw in ({"donate": True}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             InferenceEngine(str(NPZ3), device="cpu", **kw)
 

@@ -66,9 +66,19 @@ def test_decoder_logits_match_jax(filtered, checkpoint, classes, n):
 
 
 def test_decoder_refusals(filtered):
+    """A class count the checkpoint does not have, and an unknown
+    recurrence dtype, raise. Other depths are served (through the
+    per-layer recurrence) since the port has one: a one-layer cut of the
+    checkpoint agrees with JAX's decoder_apply on it."""
     params = params_from_jax(load_params_npz(REPO / "checkpoints" / "lstm3_retrained.npz"))
     with pytest.raises(ValueError, match="3 classes, config 5"):
         decoder_logits(params, torch.from_numpy(filtered[:2]), DecoderConfig(num_classes=5))
+    with pytest.raises(ValueError, match="unknown recurrence_dtype"):
+        decoder_logits(params, torch.from_numpy(filtered[:2]), DecoderConfig(recurrence_dtype="float16"))
+    jax_params = jax_load_npz(REPO / "checkpoints" / "lstm3_retrained.npz")
+    jax_params["lstm"] = jax_params["lstm"][:1]
     params["lstm"] = params["lstm"][:1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        decoder_logits(params, torch.from_numpy(filtered[:2]))
+    x = filtered[:4]
+    want = np.asarray(decoder_apply(jax_params, jnp.asarray(x), JaxDecoderConfig()))
+    got = decoder_logits(params, torch.from_numpy(x)).numpy()
+    assert np.abs(got - want).max() <= 1e-4
