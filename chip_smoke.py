@@ -90,6 +90,31 @@ of the checkout. One line per phase, each with its elapsed seconds:
          (steps/s, windows/s); autograd through the band grams, the
          Clenshaw log and the logcov kernel route against autograd through
          their twins, each forward launching its kernel
+  8. the live path, all of it under a temporary directory of its own:
+     8a. the native library built by g++ (its seconds and path);
+         native-synthetic streamed, and native-replay of 6 trial CSVs that
+         the script writes with the port's write_trial_csv, every sample
+         equal to the CSVs'
+     8b. StreamDecoder with lstm3_retrained at 32x real time (10
+         predictions, hop 1 s, average 10) on replay:<those trials> and on
+         native-replay:<them> (the C++ producer), and the flagship
+         manifest at real-time speed on replay (8 predictions): latency
+         p50 and p99, windows/s, fetch waits, launches a window (counts
+         set to 0 before and read after), each prediction and rolling
+         average against the CPU engine on the window rebuilt from its
+         counter, engine stats against the CPU engine's; one LSTM
+         window's decode alone; the overlap yardsticks, once each: the
+         JAX loop's order (always dispatch the next window first), and
+         that with the copy made after the next dispatch
+     8c. collector_filter_chain_batch on 1024 board-like windows on the
+         card (float32, matmul) against the float64 CPU chain, and that
+         against scipy and the native DSP; run_experiment headless on
+         native-synthetic for 6 trials, the chain on the card, then
+         load_trials and the trials decoded on the card against the CPU
+     8d. the dashboard (make_server on port 0, in a thread): POST
+         /api/decode in device mode on the synthetic board and POST
+         /api/stream of the flagship on replay:<trials>, the JSON fields
+         against the JAX dashboard's, each round trip in ms
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -103,6 +128,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1046,6 +1072,317 @@ def check_gradients(dev, smi: str) -> None:
               f"forward; gradient vs the twin's {rel:.3e} of its max (tol {ROUTE_GRAD_TOL})")
 
 
+# 8: the live path
+STREAM_SPEED = 32.0  # the LSTM stream's replay speed
+CHAIN_BATCH = 1024  # windows of the collector chain on the card
+CHAIN_CHECKED = 64  # of them, also through scipy and the native DSP
+# card float32 chain (one [T, T] operator product, TF32 off) against the
+# float64 CPU chain, over each window's scale max|x|: the CPU tests' limit
+CHAIN_SCALE_TOL = 1e-5
+NATIVE_TOL = 1e-9  # the float64 chain against the C++ DSP (the CPU tests' limit)
+# the dashboard's JSON fields (JAX frontend/server.py:250-269, frontend/common.py:58)
+SNAPSHOT_FIELDS = {"word_probs", "eeg", "transcript", "status", "stats_line", "timestamp"}
+STREAM_FIELDS = {"predictions", "windows_per_second", "latency_p50_ms", "latency_p90_ms", "guard_flagged"}
+PREDICTION_FIELDS = {"index", "label", "probs", "avg_probs", "latency_ms"}
+
+
+def write_trials(out_dir: Path, n: int, seed: int) -> None:
+    """n board-like trials as the collector writes them (the port's
+    write_trial_csv, 7 decimals), labels cycling food, water, backgroundnoise."""
+    from neural_speech_decoding_tpu_torch.collector.chain import write_trial_csv
+
+    labels = ("food", "water", "backgroundnoise")
+    for i, w in enumerate(synthetic_windows(n, seed)):
+        write_trial_csv(out_dir / f"{labels[i % 3]}_{i:04d}.csv", np.round(w.astype(np.float64), 7))
+
+
+def drain(board, n: int, timeout: float = 30.0) -> np.ndarray:
+    deadline = time.time() + timeout
+    while board.get_board_data_count() < n:
+        if time.time() > deadline:
+            raise TimeoutError(f"board held {board.get_board_data_count()} < {n} samples after {timeout} s")
+        time.sleep(0.005)
+    return board.get_current_board_data(n)
+
+
+def native_chain(x_tc: np.ndarray) -> np.ndarray:
+    """The collector chain through the C++ DSP (native/nsd_dsp.cpp)."""
+    from neural_speech_decoding_tpu_torch.ops.iir import _COLLECTOR_STAGES, butter_sos
+    from neural_speech_decoding_tpu_torch.runtime import native
+
+    x_ct = native.native_detrend_constant(x_tc.T)
+    for kind, order, lo, hi in _COLLECTOR_STAGES:
+        x_ct = native.native_sosfilt(x_ct, np.asarray(butter_sos(kind, order, lo, hi, 125.0)), zero_phase=True)
+    return x_ct.T
+
+
+def scipy_chain(x_tc: np.ndarray) -> np.ndarray:
+    """The collector chain through scipy: detrend, then each stage forward
+    and backward without padding."""
+    import scipy.signal
+
+    from neural_speech_decoding_tpu_torch.ops.iir import _COLLECTOR_STAGES, butter_sos
+
+    y = x_tc - x_tc.mean(axis=0, keepdims=True)
+    for kind, order, lo, hi in _COLLECTOR_STAGES:
+        sos = np.asarray(butter_sos(kind, order, lo, hi, 125.0))
+        y = scipy.signal.sosfilt(sos, scipy.signal.sosfilt(sos, y, axis=0)[::-1], axis=0)[::-1]
+    return y
+
+
+def stream_checked(label: str, decoder, engine_cpu, n_pred: int, smi: str, timeout: float,
+                   kernel_names, source_ct: np.ndarray) -> tuple:
+    """Run a StreamDecoder (its engine already warm) with the launch counts
+    set to 0 before and read after; every prediction against the CPU engine
+    on the window rebuilt from its counter (the board replays source_ct
+    [C, total] in a loop), rolling averages against the mean of the last
+    N, engine stats against the CPU engine's."""
+    from neural_speech_decoding_tpu_torch.ops import kernels
+
+    engine = decoder.engine
+    before = engine.stats
+    cpu_before = engine_cpu.stats
+    kernels.reset_launches()
+    preds, stats = decoder.run(n_pred, timeout=timeout, warm=False)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    if len(preds) != n_pred:
+        raise AssertionError(f"{label}: {len(preds)} of {n_pred} predictions in {timeout} s")
+    data = source_ct
+    n = int(decoder.window_seconds * 125)
+    idx = (np.asarray([p.counter for p in preds])[:, None] - n + 1 + np.arange(n)[None, :]) % data.shape[1]
+    windows = np.ascontiguousarray(data[:, idx].transpose(1, 2, 0), dtype=np.float32)
+    want = engine_cpu.predict_batch(windows)
+    got = np.stack([p.probs for p in preds])
+    dp = float(np.abs(got - want).max())
+    avg_want = np.stack([want[max(0, i - decoder.average_n + 1): i + 1].mean(axis=0) for i in range(n_pred)])
+    davg = float(np.abs(np.stack([p.avg_probs for p in preds]) - avg_want).max())
+    labels_equal = [p.label for p in preds] == [engine.class_names[i] for i in want.argmax(1)]
+    after, cpu_after = engine.stats, engine_cpu.stats
+    delta = {k: after[k] - before[k] for k in after}
+    cpu_delta = {k: cpu_after[k] - cpu_before[k] for k in cpu_after}
+    per_window = {k: launches[k] / n_pred for k in kernel_names}
+    if not (dp <= PROB_TOL and davg <= PROB_TOL and labels_equal and delta == cpu_delta
+            and delta["windows"] == n_pred and all(v == 1 for v in per_window.values())):
+        raise AssertionError(f"{label}: |dprob| {dp}, |davg| {davg}, labels equal {labels_equal}, stats {delta} "
+                             f"vs cpu {cpu_delta}, launches a window {per_window}")
+    lat, wait = stats.latency, stats.fetch_wait.summary()
+    phase(f"{label}: {n_pred} predictions, latency window->probabilities p50 {lat.percentile(50) * 1e3:.2f} ms, "
+          f"p99 {lat.percentile(99) * 1e3:.2f} ms, {stats.windows_per_second:.3f} windows/s, fetch waits mean "
+          f"{wait['mean'] * 1e3:.3f} ms max {wait['max'] * 1e3:.3f} ms ({smi}); launches a "
+          f"window {per_window}; vs cpu: max |delta prob| {dp:.3e}, |delta avg| {davg:.3e} (tol {PROB_TOL}), "
+          f"labels equal {labels_equal}; stats {delta} = cpu {cpu_delta}")
+    return preds, stats, launches
+
+
+def check_live_path(dev, smi: str) -> list:
+    """Phase 8: the boards, the stream, the collector and the dashboard on
+    the card. Returns the launch counts of the runs of the path."""
+    import urllib.request
+
+    from neural_speech_decoding_tpu_torch.collector.experiment import ExperimentConfig, run_experiment
+    from neural_speech_decoding_tpu_torch.collector.chain import preprocess_trial
+    from neural_speech_decoding_tpu_torch.frontend import server as dashboard
+    from neural_speech_decoding_tpu_torch.io.dataset import load_trials
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.ops.iir import collector_filter_chain_batch
+    from neural_speech_decoding_tpu_torch.runtime import native
+    from neural_speech_decoding_tpu_torch.runtime.board import open_board
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+    from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
+    from neural_speech_decoding_tpu_torch.runtime.stream import StreamDecoder
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        trials = Path(tmp) / "trials"
+        trials.mkdir()
+        write_trials(trials, 6, seed=80)
+
+        # 8a. the native library and boards
+        fresh = not native.library_path().is_file()
+        t = time.perf_counter()
+        lib = native.build()
+        phase(f"8a native library {lib.relative_to(ROOT)}: {'built by g++ in' if fresh else 'found, checked in'} "
+              f"{time.perf_counter() - t:.3f} s")
+        board = open_board("native-synthetic", speed=64.0)
+        board.prepare_session()
+        board.start_stream(5000)
+        try:
+            syn = drain(board, T)
+        finally:
+            board.release_session()
+        if not ((np.diff(syn[0]) == 1).all() and np.isfinite(syn).all() and syn[1:].std() > 0.1):
+            raise AssertionError("8a native-synthetic: counter not consecutive or samples not finite")
+        board = open_board(f"native-replay:{trials}", speed=64.0)
+        board.prepare_session()
+        board.start_stream(5000)
+        try:
+            rep = drain(board, T)
+        finally:
+            board.release_session()
+        src = np.concatenate(list(load_trials(trials, strict_shape=False).windows), axis=0)  # [T, C] f32
+        idx = (rep[0].astype(np.int64)) % src.shape[0]
+        if not np.array_equal(rep[1:].T.astype(np.float32), src[idx]):
+            raise AssertionError("8a native-replay: samples differ from the CSVs'")
+        phase(f"8a native-synthetic {syn.shape}: counter consecutive, std {syn[1:].std():.3f}; "
+              f"native-replay:<6 trial CSVs> {rep.shape}: every sample equal to the CSVs' (counter {int(rep[0, 0])}..)")
+
+        # 8b. the stream on the card
+        source = np.ascontiguousarray(src.T, dtype=np.float64)  # [C, total], as both replay boards stream it
+        lstm = InferenceEngine(str(CHECKPOINT), class_names=("Food", "Water", "None"))
+        lstm_cpu = InferenceEngine(str(CHECKPOINT), class_names=("Food", "Water", "None"), device="cpu")
+        lstm.warmup([1])
+        one = torch.from_numpy(synthetic_windows(1, 81)).to(dev)
+        decode_s = []
+        for _ in range(3):
+            t = time.perf_counter()
+            lstm.predict_batch_async(one)
+            torch.cuda.synchronize()
+            decode_s.append(time.perf_counter() - t)
+        phase(f"8b one LSTM window's decode on {dev}: {np.median(decode_s) * 1e3:.2f} ms (median of 3, host clock "
+              f"to synchronize; {smi})")
+        for spec in (f"replay:{trials}", f"native-replay:{trials}"):
+            decoder = StreamDecoder(lstm, open_board(spec, speed=STREAM_SPEED), hop_seconds=1.0, average_n=10)
+            _, _, launches = stream_checked(
+                f"8b LSTM stream, {spec.split(':')[0]}:<6 trials> at {STREAM_SPEED:g}x, hop 1 s, average 10",
+                decoder, lstm_cpu, 10, smi, 120.0, ("kuramoto_pair_sums",), source)
+            runs.append(launches)
+
+        class DispatchFirst(StreamDecoder):
+            """The JAX loop's order: always dispatch window i+1 before
+            fetching i (the copy and event still made at dispatch)."""
+
+            def _ready(self, staged):
+                return False
+
+        class CopyAfterNextDispatch(DispatchFirst):
+            """The yardstick: each window's probabilities copied to the host
+            only when fetched, behind the next window's kernels."""
+
+            def _stage(self, probs):
+                return probs, None
+
+            def _collect(self, staged):
+                return staged[0].cpu().numpy()
+
+        for variant in (DispatchFirst, CopyAfterNextDispatch):
+            yard = variant(lstm, open_board(f"replay:{trials}", speed=STREAM_SPEED), hop_seconds=1.0, average_n=10)
+            _, ystats = yard.run(6, timeout=120.0, warm=False)
+            ywait = ystats.fetch_wait.summary()
+            phase(f"8b overlap, {variant.__name__} (LSTM, replay at {STREAM_SPEED:g}x, {ywait['count']} fetches; "
+                  f"{smi}): fetch waits mean {ywait['mean'] * 1e3:.3f} ms, max {ywait['max'] * 1e3:.3f} ms; latency "
+                  f"p50 {ystats.latency.percentile(50) * 1e3:.2f} ms, {ystats.windows_per_second:.3f} windows/s")
+
+        flagship = EnsembleEngine.from_manifest(str(FLAGSHIP))
+        flagship_cpu = EnsembleEngine.from_manifest(str(FLAGSHIP), device="cpu")
+        flagship.warmup([1])
+        decoder = StreamDecoder(flagship, open_board(f"replay:{trials}", speed=1.0), hop_seconds=1.0, average_n=10)
+        _, _, launches = stream_checked(
+            "8b flagship stream at real-time speed (1x), replay:<6 trials>, hop 1 s, average 10", decoder,
+            flagship_cpu, 8, smi, 60.0, ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats"), source)
+        runs.append(launches)
+
+        # 8c. the collector chain on the card
+        x = synthetic_windows(CHAIN_BATCH, 82).astype(np.float64)
+        x += 3.0 * np.sin(2 * np.pi * 60 * np.arange(T) / 125.0)[None, :, None]  # mains
+        x += np.random.default_rng(83).uniform(-5, 5, (CHAIN_BATCH, 1, C))  # electrode offsets
+        x32 = torch.from_numpy(x.astype(np.float32)).to(dev)
+        got = collector_filter_chain_batch(x32, method="matmul")
+        torch.cuda.synchronize()
+        chain_ms = cuda_ms(lambda: collector_filter_chain_batch(x32, method="matmul"), 20)
+        ref = collector_filter_chain_batch(torch.from_numpy(x.astype(np.float32).astype(np.float64)),
+                                           method="matmul").numpy()
+        scale_in = np.abs(x).max(axis=(1, 2), keepdims=True)
+        scale_out = np.abs(ref).max(axis=(1, 2), keepdims=True)
+        diff = np.abs(got.cpu().numpy().astype(np.float64) - ref)
+        err_in, err_out = float((diff / scale_in).max()), float((diff / scale_out).max())
+        xs = x[:CHAIN_CHECKED].astype(np.float32).astype(np.float64)
+        err_scipy = max(float(np.abs(scipy_chain(w) - r).max()) for w, r in zip(xs, ref))
+        err_native = max(float(np.abs(native_chain(w) - r).max()) for w, r in zip(xs, ref))
+        if not (err_in <= CHAIN_SCALE_TOL and err_scipy <= NATIVE_TOL and err_native <= NATIVE_TOL):
+            raise AssertionError(f"8c collector chain: card vs float64 {err_in} of scale, float64 vs scipy "
+                                 f"{err_scipy}, vs native {err_native}")
+        phase(f"8c collector_filter_chain_batch({CHAIN_BATCH}) float32 matmul on {dev}: {chain_ms:.4f} ms ({smi}); "
+              f"vs the float64 CPU chain {err_in:.3e} of each window's max|x| (tol {CHAIN_SCALE_TOL}), {err_out:.3e} "
+              f"of its max|y|; float64 chain vs scipy {err_scipy:.3e}, vs the native DSP {err_native:.3e} "
+              f"(tol {NATIVE_TOL}, {CHAIN_CHECKED} windows)")
+
+        board = open_board("native-synthetic", speed=256.0)
+        board.prepare_session()
+        board.start_stream(20000)
+        out = Path(tmp) / "collected"
+        try:
+            t = time.perf_counter()
+            paths = run_experiment(board, out, ExperimentConfig(words=("water", "food", "yes"), n_reps=2,
+                                                                warmup_seconds=0.0), device=dev)
+            exp_s = time.perf_counter() - t
+            raw = board.get_current_board_data(T)[1:].T
+        finally:
+            board.release_session()
+        ds = load_trials(out, class_prefixes=("water", "food", "yes"))
+        same = np.abs(preprocess_trial(raw, device=dev) - preprocess_trial(raw, device="cpu")).max()
+        kernels.reset_launches()
+        probs = lstm.predict_batch(ds.windows)
+        torch.cuda.synchronize()
+        launches = kernels.launches()
+        runs.append(launches)
+        dp = float(np.abs(probs - lstm_cpu.predict_batch(ds.windows)).max())
+        if not (len(paths) == 6 and ds.windows.shape == (6, T, C) and same <= 1e-7 and dp <= PROB_TOL
+                and launches["kuramoto_pair_sums"] == 1):
+            raise AssertionError(f"8c experiment: {len(paths)} trials, {ds.windows.shape}, chain card vs cpu "
+                                 f"{same}, decode |dprob| {dp}, launches {launches}")
+        phase(f"8c run_experiment(6 trials) on native-synthetic at 256x, chain on {dev}: {exp_s:.3f} s; "
+              f"load_trials {ds.windows.shape}; a trial's rounded chain card vs cpu max diff {same:.1e}; the 6 "
+              f"trials decoded on the card (LSTM): argmax {probs.argmax(1).tolist()}, vs cpu max |delta prob| "
+              f"{dp:.3e} (tol {PROB_TOL}); launches {launches}")
+
+        # 8d. the dashboard
+        server = dashboard.make_server(0, warm_family="lstm", device=dev)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def post(path, payload):
+            req = urllib.request.Request(url + path, data=json.dumps(payload).encode(), method="POST",
+                                         headers={"Content-Type": "application/json"})
+            kernels.reset_launches()
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.loads(r.read())
+            ms = (time.perf_counter() - t) * 1e3
+            torch.cuda.synchronize()
+            return body, ms, kernels.launches()
+
+        try:
+            snap, decode_ms, launches = post("/api/decode", {"mode": "device", "board": "synthetic",
+                                                             "trials": 3, "speed": 64})
+            runs.append(launches)
+            probs = np.array(list(snap["word_probs"].values()))
+            if not (set(snap) == SNAPSHOT_FIELDS and len(probs) == 3 and abs(probs.sum() - 1) < 1e-5
+                    and np.asarray(snap["eeg"]).shape == (T, C) and launches["kuramoto_pair_sums"] >= 3):
+                raise AssertionError(f"8d /api/decode: fields {sorted(snap)}, probs {probs}, launches {launches}")
+            body, stream_ms, launches = post("/api/stream", {
+                "board": f"replay:{trials}", "family": "logcov8", "model_path": str(FLAGSHIP),
+                "predictions": 4, "speed": 64, "hop_seconds": 1.0, "average_n": 10, "timeout": 120})
+            runs.append(launches)
+            preds = body.get("predictions", [])
+            if not (set(body) == STREAM_FIELDS and len(preds) == 4
+                    and all(set(p) == PREDICTION_FIELDS for p in preds)
+                    and min(launches[k] for k in ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats")) >= 4):
+                raise AssertionError(f"8d /api/stream: body {body}, launches {launches}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=10)
+        phase(f"8d dashboard on {dev} ({smi}): POST /api/decode (device, synthetic, 3 trials, LSTM) round trip "
+              f"{decode_ms:.1f} ms, fields {sorted(snap)}, word_probs "
+              f"{ {k: round(v, 4) for k, v in snap['word_probs'].items()} }; POST /api/stream (replay:<6 trials>, "
+              f"logcov8 flagship manifest, 4 predictions at 64x) round trip {stream_ms:.1f} ms (the ensemble's "
+              f"build included), fields {sorted(body)}, latency p50 {body['latency_p50_ms']:.2f} ms, guard_flagged "
+              f"{body['guard_flagged']}; launches {launches}")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1499,6 +1836,9 @@ def main() -> int:
     cli_launches = train_cli(dev, windows[:16])
     check_gradients(dev, smi)
 
+    # 8. the live path: boards, stream, collector, dashboard
+    live_launches = check_live_path(dev, smi)
+
     # 6. report
     k_ms, p_ms, bound, by = times[TIMED[-1]]
     phase(f"kernel times below are at B={TIMED[-1]} (batch {TIMED[0]}: kernel {times[TIMED[0]][0]:.4f} ms, "
@@ -1508,7 +1848,7 @@ def main() -> int:
                                          flagship_trial_launches, cheb_launches, cheb_trial_launches,
                                          unw_launches, iir_launches, mix_launches, rec_launches,
                                          tcn_trial_launches, train_launches, cli_launches]
-                   + family_launches)
+                   + family_launches + live_launches)
 
     logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
                               iir_cascade=iir_times[TIMED[0]])

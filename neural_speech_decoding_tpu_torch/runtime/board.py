@@ -1,19 +1,23 @@
 """EEG acquisition boards.
 
 Own copy of neural_speech_decoding_tpu/runtime/board.py (the port imports
-nothing of the JAX package), for the boards this slice ports: the
-pure-Python ring buffer, `SyntheticBoard` and `ReplayBoard` over arrays or
-.npy files. The native C++, serial and BrainFlow boards, and replay from a
-directory of recorded CSV trials, are listed in ROADMAP.md.
-
-Boards expose the BrainFlow BoardShim sub-surface the runtime uses:
+nothing of the JAX package). Boards expose the BrainFlow BoardShim
+sub-surface the runtime uses:
 
   prepare_session / start_stream / stop_stream / release_session
   get_board_data_count / get_current_board_data / config_board(_with_bytes)
 
-`get_current_board_data(n)` returns [rows, n] with the EEG channels at the
-`eeg_channels` row indices. A `speed` multiplier lets tests run faster than
-real time while keeping real-time semantics at speed=1.
+`get_current_board_data(n)` returns [rows, n] with a sample counter in row
+0 and the EEG channels at the `eeg_channels` row indices. Two engines
+provide the samples: a pure-Python producer thread over a ring buffer
+(`SyntheticBoard`, `ReplayBoard`), and the C++ runtime of native/ behind
+ctypes (`NativeBoard`, built by runtime/native.py). `ReplayBoard` streams
+recorded trials (an array, a .npy file, or a directory of trial CSVs) in a
+loop; `SyntheticBoard` generates per-channel sin + modulation + noise. A
+`speed` multiplier lets tests run faster than real time while keeping
+real-time semantics at speed=1. `open_board` resolves every spec of the
+JAX package's `open_board`, the serial and BrainFlow boards included
+(runtime/serial_board.py, runtime/brainflow_board.py).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
+
+from neural_speech_decoding_tpu_torch.runtime import native
 
 
 class RingBuffer:
@@ -188,8 +194,9 @@ class SyntheticBoard(Board):
 
 
 class ReplayBoard(Board):
-    """Streams recorded windows (an array, or a .npy file, of [N, T, C] or
-    [T, C]) in order, looping forever."""
+    """Streams recorded trials (an array or .npy file of [N, T, C] or
+    [T, C], or a directory of `<class>_*.csv` trials) in order, looping
+    forever."""
 
     def __init__(
         self,
@@ -208,12 +215,10 @@ class ReplayBoard(Board):
             arr = source
         else:
             path = Path(source)
-            if path.suffix != ".npy":
-                raise NotImplementedError(
-                    f"replay from {path}: only arrays and .npy files are "
-                    "ported; the recorded-trial loader is listed in ROADMAP.md"
-                )
-            arr = np.load(path, allow_pickle=False)
+            if path.suffix == ".npy":
+                arr = np.load(path, allow_pickle=False)
+            else:
+                arr = _trial_stream(path)
         if arr.ndim == 3:  # [N, T, C] stack of windows
             arr = np.concatenate(list(arr), axis=0)
         if arr.ndim != 2:
@@ -230,6 +235,66 @@ class ReplayBoard(Board):
         out[0] = start + np.arange(k)
         out[1 : 1 + self.num_channels] = self._data[: self.num_channels, idx]
         return out
+
+
+def _trial_stream(data_dir) -> np.ndarray:
+    """The recorded trials under `data_dir` back to back, [T_total, C]."""
+    from neural_speech_decoding_tpu_torch.io.dataset import load_trials
+
+    ds = load_trials(data_dir, strict_shape=False)
+    return np.concatenate(list(ds.windows), axis=0)
+
+
+class NativeBoard(Board):
+    """Board whose ring buffer and producer thread live in the C++ runtime
+    (native/nsd_board.cpp), bound through ctypes: the same surface, no
+    Python in the sample path. The library is built at the first
+    NativeBoard; a failed build raises."""
+
+    def __init__(
+        self,
+        mode: str,
+        num_channels: int = 8,
+        sample_rate: int = 125,
+        speed: float = 1.0,
+        replay_data: Optional[np.ndarray] = None,  # [C, T]
+        seed: int = 0,
+    ):
+        super().__init__(num_channels, sample_rate, speed=speed)
+        if mode == "replay" and replay_data is None:
+            raise ValueError("replay mode needs replay_data [C, T]")
+        self._native = native.NativeBoardHandle(
+            native.load_library(),
+            mode=mode,
+            num_rows=self.num_rows,
+            num_channels=num_channels,
+            sample_rate=sample_rate,
+            seed=seed,
+        )
+        if mode == "replay":
+            self._native.load_replay(np.ascontiguousarray(replay_data, dtype=np.float32))
+
+    def start_stream(self, buffer_size: int = 450000) -> None:
+        if not self._prepared:
+            raise RuntimeError("prepare_session() not called")
+        self._native.start(buffer_size, self.speed)
+        self._streaming = True
+
+    def stop_stream(self) -> None:
+        self._native.stop()
+        self._streaming = False
+
+    def release_session(self) -> None:
+        if self._streaming:
+            self.stop_stream()
+        self._native.release()
+        self._prepared = False
+
+    def get_board_data_count(self) -> int:
+        return self._native.data_count()
+
+    def get_current_board_data(self, n: int) -> np.ndarray:
+        return self._native.get_current(n)
 
 
 def send_board_command(board, command: str) -> bool:
@@ -264,20 +329,62 @@ def read_channel_window(board, channel_rows, seconds: float, sample_rate: int) -
     return raw[list(channel_rows), :]
 
 
+def _default_replay_dir():
+    from neural_speech_decoding_tpu_torch.io.dataset import default_data_dir
+
+    src = default_data_dir()
+    if src is None:
+        raise FileNotFoundError(
+            "replay board: no source path and no default dataset (set $NSD_DATA_DIR)"
+        )
+    return src
+
+
 def open_board(spec: str, num_channels: int = 8, speed: float = 1.0) -> Board:
     """Resolve a board spec string to a Board.
 
     Specs:
-      "synthetic"          pure-Python synthetic board
-      "replay:<file.npy>"  replay recorded windows from a .npy array
-    Every other spec of the JAX package (native, serial, BrainFlow, replay
-    of the default dataset) raises NotImplementedError: see ROADMAP.md.
+      "synthetic"              pure-Python synthetic board
+      "replay:<dir-or-.npy>"   replay recorded trials from a path
+      "replay"                 replay the $NSD_DATA_DIR trials
+      "native-synthetic"       C++ engine synthetic board
+      "native-replay[:path]"   C++ engine replay of a trial directory
+                               ($NSD_DATA_DIR without a path)
+      "serial:<device>"        live text-frame acquisition from a serial
+                               character device (runtime/serial_board.py)
+      "brainflow:<port>[:id]"  real Knight hardware through the BrainFlow
+                               BoardShim, where brainflow is installed
+                               (runtime/brainflow_board.py, import-gated)
+      anything else            treated as an unadapted hardware port
     """
     if spec == "synthetic":
         return SyntheticBoard(num_channels=num_channels, speed=speed)
-    if spec.startswith("replay:"):
-        return ReplayBoard(spec.split(":", 1)[1], num_channels=num_channels, speed=speed)
-    raise NotImplementedError(
-        f"board spec {spec!r} is not ported yet (only 'synthetic' and "
-        "'replay:<file.npy>'); see ROADMAP.md"
+    if spec == "replay" or spec.startswith("replay:"):
+        src = spec.split(":", 1)[1] if ":" in spec else _default_replay_dir()
+        return ReplayBoard(src, num_channels=num_channels, speed=speed)
+    if spec == "native-synthetic":
+        return NativeBoard("synthetic", num_channels=num_channels, speed=speed)
+    if spec == "native-replay" or spec.startswith("native-replay:"):
+        src = spec.split(":", 1)[1] if ":" in spec else _default_replay_dir()
+        return NativeBoard(
+            "replay",
+            num_channels=num_channels,
+            speed=speed,
+            replay_data=_trial_stream(src).T,  # [C, T]
+        )
+    if spec.startswith("serial:"):
+        from neural_speech_decoding_tpu_torch.runtime.serial_board import SerialBoard
+
+        return SerialBoard(spec.split(":", 1)[1], num_channels=num_channels)
+    if spec.startswith("brainflow:"):
+        from neural_speech_decoding_tpu_torch.runtime.brainflow_board import BrainFlowBoard
+
+        port, _, board_id = spec.split(":", 1)[1].partition(":")
+        return BrainFlowBoard(port, int(board_id) if board_id else None)
+    raise RuntimeError(
+        f"board spec {spec!r} looks like a hardware serial port; the "
+        "BrainFlow binary protocol is not re-implementable here — use "
+        "'brainflow:<port>' where the brainflow package is installed, "
+        "'serial:<device>' for text-frame devices, or 'replay[:path]' / "
+        "'synthetic'"
     )

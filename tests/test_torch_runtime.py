@@ -47,20 +47,43 @@ def test_ring_buffer_wraps_like_jax():
             np.testing.assert_array_equal(ours.latest(n), theirs.latest(n))
 
 
-def test_open_board_specs(tmp_path):
+def test_open_board_specs(tmp_path, monkeypatch):
+    """Every spec of the JAX package's open_board resolves: synthetic,
+    replay of a .npy array or of a trial-CSV directory ($NSD_DATA_DIR when
+    bare), the native C++ boards, serial:<device>, brainflow:<port> (an
+    actionable ImportError without the package), and an unadapted port
+    (RuntimeError naming the serial port)."""
+    from neural_speech_decoding_tpu_torch.runtime.serial_board import SerialBoard
+
     assert isinstance(open_board("synthetic"), SyntheticBoard)
     path = tmp_path / "w.npy"
     np.save(path, np.ones((2, 625, 8), np.float32))
     replay = open_board(f"replay:{path}")
     assert isinstance(replay, ReplayBoard) and replay._data.shape == (8, 1250)
-    for spec in ("replay", "native-synthetic", "serial:/dev/null", "brainflow:COM3", "/dev/ttyUSB0"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    trials = tmp_path / "trials"
+    trials.mkdir()
+    np.savetxt(trials / "food_0.csv", np.full((625, 8), 0.5), delimiter=",", fmt="%.7f")
+    assert ReplayBoard(str(trials))._data.shape == (8, 625)
+    monkeypatch.delenv("NSD_DATA_DIR", raising=False)
+    for spec in ("replay", "native-replay"):
+        with pytest.raises(FileNotFoundError, match="NSD_DATA_DIR"):
             open_board(spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ReplayBoard(str(tmp_path))
+    monkeypatch.setenv("NSD_DATA_DIR", str(trials))
+    assert open_board("replay")._data.shape == (8, 625)
+    native = open_board("native-replay", speed=2.0)
+    assert isinstance(native, board_mod.NativeBoard) and native.speed == 2.0
+    native.release_session()
+    synthetic = open_board("native-synthetic")
+    assert isinstance(synthetic, board_mod.NativeBoard)
+    synthetic.release_session()
+    serial = open_board("serial:/dev/null")
+    assert isinstance(serial, SerialBoard) and serial.device_path == "/dev/null"
+    with pytest.raises(ImportError, match="brainflow"):
+        open_board("brainflow:COM3")
+    with pytest.raises(RuntimeError, match="serial port"):
+        open_board("/dev/ttyUSB0")
     with pytest.raises(ValueError, match="2D/3D"):
         ReplayBoard(np.zeros((5,), np.float32))
-    assert not hasattr(board_mod, "NativeBoard")
 
 
 def test_streaming_producer_emits_windows():
