@@ -115,6 +115,35 @@ of the checkout. One line per phase, each with its elapsed seconds:
          /api/decode in device mode on the synthetic board and POST
          /api/stream of the flagship on replay:<trials>, the JSON fields
          against the JAX dashboard's, each round trip in ms
+  9. the analysis and evaluation path, under a temporary directory of its
+     own, each run of the path with the launch counts set to 0 before and
+     read after:
+     9a. analyze_file on a board-like 60 s CSV (8 channels at 125 Hz, in
+         volts, a header and an index column) and on a small EDF written
+         here, on the card against the CPU (filtered output and every
+         metric within 1e-9 of the largest |value|; no kernel launched: the
+         float64 filter); KuramotoSpatialFilter.transform on one window the
+         same way; wall times
+     9b. run_realtime on a synthetic board at 16x, 5 windows, burst
+         injection: each window's metrics against the CPU's on the window
+         at the same counter, with the same noise draws
+     9c. run_crossval of the flagship recipe (logcov8 whitened, dropout 0)
+         on 90 synthetic 3-class trial CSVs (each class its own channel
+         mixing), 3 folds, 2 seeds, 30 epochs: seconds, launches (pair sums
+         once, band grams and features once a fold), the headline numbers;
+         the folds, inner splits, augmentation draws and y_val equal to
+         those of the same call on the CPU
+     9d. session_eval.evaluate of the 9c JSON with 4 s crops: every number
+         finite and in [0, 1]
+     9e. fit_ensemble with K=2 on the same trials, its manifest served by
+         EnsembleEngine on the card and the CPU (16 windows, |delta logit|)
+     9f. stream_soak of the flagship member on the replay board at 16x for
+         20 hops: hops missed while busy, latency p50 and p99, one launch
+         of each kernel a hop, predictions against the CPU engine on the
+         windows rebuilt from their counters
+     9g. the flagship's predict_batch(1024) inside device_trace and
+         annotate("predict"): the trace file, and the pair-sums, gram and
+         feature kernels inside the annotated range
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -122,6 +151,7 @@ Any failure raises and exits non-zero; so does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import signal
@@ -1383,6 +1413,340 @@ def check_live_path(dev, smi: str) -> list:
     return runs
 
 
+# 9: the analysis and evaluation path
+ANALYSIS_REL_TOL = 1e-9  # float64 filter and metrics, card against CPU, over the largest |value|
+ANALYSIS_SECONDS = 60  # the board-like CSV recording
+REALTIME_WINDOWS = 5
+# crossval: 30 trials a class. With 3 folds the inner training split of a
+# fold holds about 52 trials and, with its augmented copies, about 78, so
+# each epoch takes two steps of 32 (with 12 a class, as in a 36-trial set,
+# fewer than 32 would remain and no step would run).
+CV_PER_CLASS = 30
+CV_KW = {"model": "logcov8", "folds": 3, "seeds": 2, "epochs": 30, "model_kw": FLAGSHIP_KW, "verbose": False}
+SOAK_HOPS = 20
+SOAK_SPEED = 16.0
+TRACED_BATCH = 1024
+PATH_KERNELS = ("kuramoto_pair_sums", "bandcov_grams", "logcov_feats")
+TRACE_KERNELS = {"kuramoto_pair_sums": "pair_sums_kernel", "bandcov_grams": "band_grams_kernel",
+                 "logcov_feats": "logcov_feats_kernel"}
+
+
+def write_board_csv(path: Path, seconds: int, seed: int) -> None:
+    """A board-like recording as a board exports it: [T, 8] in volts, a
+    header row and a sample-index column."""
+    x = synthetic_recording(seconds * 125, seed).astype(np.float64) * 30e-6
+    x[20 * 125 : 20 * 125 + 40, 2] += 400e-6  # an artifact burst
+    rows = "\n".join(f"{i}," + ",".join(f"{v:.12e}" for v in row) for i, row in enumerate(x))
+    path.write_text("index," + ",".join(f"ch{i}" for i in range(C)) + "\n" + rows + "\n")
+
+
+def write_edf(path: Path, data_ct: np.ndarray, fs: int) -> None:
+    """A small EDF+ file written field by field: int16 samples of the
+    physical range +-500 uV, one record a second, and an annotation
+    channel."""
+    n_rec = data_ct.shape[1] // fs
+    labels = [f"EEG C{i}" for i in range(data_ct.shape[0])] + ["EDF Annotations"]
+    ns = len(labels)
+
+    def fld(values, width):
+        return b"".join(str(v).ljust(width)[:width].encode("ascii") for v in values)
+
+    header = ("0".ljust(8) + "X X X X".ljust(80) + "Startdate 01-JAN-2026 X X X".ljust(80) + "01.01.26"
+              + "00.00.00" + str(256 * (ns + 1)).ljust(8) + "EDF+C".ljust(44) + str(n_rec).ljust(8)
+              + "1".ljust(8) + str(ns).ljust(4)).encode("ascii")
+    header += fld(labels, 16) + fld([""] * ns, 80) + fld(["uV"] * ns, 8) + fld([-500] * ns, 8)
+    header += fld([500] * ns, 8) + fld([-32768] * ns, 8) + fld([32767] * ns, 8) + fld([""] * ns, 80)
+    header += fld([fs] * data_ct.shape[0] + [16], 8) + fld([""] * ns, 32)
+    dig = np.clip(np.round((data_ct + 500.0) / (1000.0 / 65535.0) - 32768), -32768, 32767).astype("<i2")
+    body = bytearray()
+    for r in range(n_rec):
+        for ch in range(data_ct.shape[0]):
+            body += dig[ch, r * fs : (r + 1) * fs].tobytes()
+        body += bytes(32)
+    path.write_bytes(header + bytes(body))
+
+
+def tree_rel_err(got, want) -> float:
+    """The largest error over the numeric leaves of two nested dicts/lists,
+    each over its leaf's largest |value|; strings, bools and None equal."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"keys differ: {sorted(got)} vs {sorted(want)}")
+        return max([tree_rel_err(got[k], want[k]) for k in want] + [0.0])
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"lengths differ: {len(got)} vs {len(want)}")
+        return max([tree_rel_err(g, w) for g, w in zip(got, want)] + [0.0])
+    if isinstance(want, (bool, str)) or want is None:
+        if got != want:
+            raise AssertionError(f"{got!r} != {want!r}")
+        return 0.0
+    g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if g.shape != w.shape:
+        raise AssertionError(f"shapes differ: {g.shape} vs {w.shape}")
+    return float(np.abs(g - w).max() / max(float(np.abs(w).max()), 1e-300)) if w.size else 0.0
+
+
+def recording_synthetic_board(speed: float, seed: int):
+    """A streaming SyntheticBoard that keeps each distinct window that
+    run_realtime reads, by its last counter, in `windows`."""
+    from neural_speech_decoding_tpu_torch.runtime.board import SyntheticBoard
+
+    board = SyntheticBoard(speed=speed, seed=seed)
+    board.windows = {}
+    read = board.get_current_board_data
+
+    def keep(n):
+        data = read(n)
+        board.windows.setdefault(int(data[0, -1]), data)
+        return data
+
+    board.get_current_board_data = keep
+    return board
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """Within the block, module.<name> keeps each call's result in the
+    list it yields."""
+    fn, kept = getattr(module, name), []
+    setattr(module, name, lambda *a, **kw: kept.append(fn(*a, **kw)) or kept[-1])
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def check_analysis_path(dev, smi: str, flagship) -> list:
+    """Phase 9: the analysis CLIs' functions, the filter estimator, the
+    cross-validation, session-eval, ensemble-fit and stream-soak tools, and
+    a traced flagship call, on the card. Returns the launch counts of the
+    runs of the path."""
+    import os
+
+    from neural_speech_decoding_tpu_torch.analysis.offline import analyze_file
+    from neural_speech_decoding_tpu_torch.analysis.realtime import run_realtime
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import KuramotoSpatialFilter
+    from neural_speech_decoding_tpu_torch.io.dataset import load_trials, write_synthetic_trials
+    from neural_speech_decoding_tpu_torch.runtime.board import SyntheticBoard
+    from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
+    from neural_speech_decoding_tpu_torch.tools import crossval, fit_ensemble, session_eval, stream_soak
+    from neural_speech_decoding_tpu_torch.utils.tracing import TRACE_FILE, annotate, device_trace
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # 9a. offline analysis of a CSV and an EDF, card against CPU
+        csv, edf = tmp / "board.csv", tmp / "small.edf"
+        write_board_csv(csv, ANALYSIS_SECONDS, seed=90)
+        write_edf(edf, synthetic_recording(250 * 12, 91).T.astype(np.float64) * 40.0 + 3.0, fs=250)
+        for path, lambd, channel in ((csv, 1e-25, 2), (edf, 1e-34, 0)):
+            kernels.reset_launches()
+            t = time.perf_counter()
+            metrics, filtered = analyze_file(path, lambd=lambd, channel=channel, out_dir=tmp / "out", device=dev)
+            card_s = time.perf_counter() - t
+            launches = kernels.launches()
+            t = time.perf_counter()
+            metrics_cpu, filtered_cpu = analyze_file(path, lambd=lambd, channel=channel, device="cpu")
+            cpu_s = time.perf_counter() - t
+            f_err = float(np.abs(filtered - filtered_cpu).max() / np.abs(filtered_cpu).max())
+            m_err = tree_rel_err(metrics, metrics_cpu)
+            flips = int((filtered != filtered_cpu).sum())
+            if not (f_err <= ANALYSIS_REL_TOL and m_err <= ANALYSIS_REL_TOL and sum(launches.values()) == 0
+                    and filtered.shape == filtered_cpu.shape and np.isfinite(filtered).all()):
+                raise AssertionError(f"9a analyze_file({path.name}): filtered {f_err}, metrics {m_err}, {flips} "
+                                     f"samples differ, launches {launches}")
+            phase(f"9a analyze_file({path.name}, {filtered.shape[0]} ch x {filtered.shape[1]} samples at "
+                  f"{metrics['fs_hz']:g} Hz, lambda {lambd:g}) on {dev}: {card_s:.3f} s wall (cpu {cpu_s:.3f} s; "
+                  f"{smi}); vs cpu: filtered {f_err:.3e}, metrics {m_err:.3e} of the largest |value| (tol "
+                  f"{ANALYSIS_REL_TOL}), {flips} samples not equal; SNR {metrics['snr_db_channel']:.3f} dB, unit "
+                  f"{metrics['detected_unit']}, tags {metrics['tags_channel']}; no kernel launched")
+        window = synthetic_recording(T, 92).T.astype(np.float64) * 25.0
+        t = time.perf_counter()
+        got = KuramotoSpatialFilter(lambd=1e-25, device=dev).transform(window)
+        est_s = time.perf_counter() - t
+        want = KuramotoSpatialFilter(lambd=1e-25, device="cpu").transform(window)
+        e_err = float(np.abs(got - want).max() / np.abs(want).max())
+        if not (e_err <= ANALYSIS_REL_TOL and got.dtype == np.float64):
+            raise AssertionError(f"9a KuramotoSpatialFilter: {e_err} of the largest |value|")
+        phase(f"9a KuramotoSpatialFilter.transform(one [8, 625] window) on {dev}: {est_s * 1e3:.2f} ms wall; vs "
+              f"cpu {e_err:.3e} of the largest |value| (tol {ANALYSIS_REL_TOL})")
+
+        # 9b. real-time analysis on a synthetic board at 16x with bursts;
+        # the cpu run reads the card run's windows again, in order
+        board = recording_synthetic_board(16.0, seed=93)
+        board.prepare_session()
+        board.start_stream(5000)
+        try:
+            t = time.perf_counter()
+            got = run_realtime(board, n_windows=REALTIME_WINDOWS, inject="burst", seed=94, timeout=60, device=dev)
+            rt_s = time.perf_counter() - t
+        finally:
+            board.release_session()
+        seen = list(board.windows.values())
+        replay = SyntheticBoard(speed=16.0)  # never started: it serves the windows seen
+        replay.get_board_data_count = lambda: T
+        replay.get_current_board_data = lambda n, reads=iter(seen): next(reads)
+        want = run_realtime(replay, n_windows=REALTIME_WINDOWS, inject="burst", seed=94, timeout=60, device="cpu")
+        r_err = tree_rel_err(got, want)
+        if not (len(got) == REALTIME_WINDOWS and len(seen) == REALTIME_WINDOWS and r_err <= ANALYSIS_REL_TOL):
+            raise AssertionError(f"9b run_realtime: {len(got)} windows, {len(seen)} read, metrics {r_err}")
+        phase(f"9b run_realtime(synthetic at 16x, {REALTIME_WINDOWS} windows of 1 s, inject burst) on {dev}: "
+              f"{rt_s:.3f} s wall ({smi}); each window's metrics vs the cpu on the window at the same counter "
+              f"{r_err:.3e} (tol {ANALYSIS_REL_TOL}); SNR dB {[round(m['snr_db_channel'], 2) for m in got]}")
+
+        # 9c. cross-validation of the flagship recipe on synthetic trials
+        trials = write_synthetic_trials(tmp / "trials", CV_PER_CLASS, seed=95)
+        old_data_dir = os.environ.get("NSD_DATA_DIR")
+        os.environ["NSD_DATA_DIR"] = str(trials)
+        try:
+            draws = {}
+            for label, device in (("card", dev), ("cpu", "cpu")):
+                with recorded(crossval, "stratified_folds") as folds, recorded(crossval, "augment_batch_np") as augs:
+                    kernels.reset_launches()
+                    t = time.perf_counter()
+                    summary = crossval.run_crossval(**CV_KW, device=device)
+                    if label == "card":
+                        torch.cuda.synchronize()
+                    seconds = time.perf_counter() - t
+                    launches = kernels.launches()
+                draws[label] = ({"stratified_folds": folds, "augment_batch_np": augs}, summary, seconds, launches)
+            kept, summary, cv_s, cv_launches = draws["card"]
+            kept_cpu, summary_cpu, cpu_s, _ = draws["cpu"]
+            runs.append(cv_launches)
+            folds_equal = all(
+                len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+                for a, b in zip(kept["stratified_folds"], kept_cpu["stratified_folds"])
+            ) and len(kept["stratified_folds"]) == len(kept_cpu["stratified_folds"]) == 1 + CV_KW["folds"]
+            aug_equal = all(np.array_equal(ya, yb) and xa.shape == xb.shape
+                            for (xa, ya), (xb, yb) in zip(kept["augment_batch_np"], kept_cpu["augment_batch_np"]))
+            y_equal = [fd["y_val"] for fd in summary["fold_detail"]] == [fd["y_val"] for fd in summary_cpu["fold_detail"]]
+            want = dict.fromkeys(kernels.LAUNCHES, 0)
+            want.update(kuramoto_pair_sums=1, bandcov_grams=CV_KW["folds"], logcov_feats=CV_KW["folds"])
+            accs = [v for row in summary["by_protocol"].values() for v in row["folds"]]
+            if not (folds_equal and aug_equal and y_equal and cv_launches == want
+                    and all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs)
+                    and summary["reference"] == [] and summary["reference_mean"] is None):
+                raise AssertionError(f"9c crossval: folds equal {folds_equal}, augmentation equal {aug_equal}, "
+                                     f"y_val equal {y_equal}, launches {cv_launches} (want {want}), "
+                                     f"accuracies {accs}")
+            bp = summary["by_protocol"]
+            phase(f"9c run_crossval(logcov8 whitened, {3 * CV_PER_CLASS} trials, {CV_KW['folds']} folds, {CV_KW['seeds']} seeds, {CV_KW['epochs']} epochs) on {dev}: "
+                  f"{cv_s:.3f} s ({smi}; the same call on the cpu {cpu_s:.3f} s); launches {cv_launches} (pair sums "
+                  f"once, grams and features once a fold's featurize); folds, inner splits, augmentation draws and "
+                  f"y_val equal to the cpu call's; nested {bp['nested']['mean']:.3f} ± {bp['nested']['std']:.3f}, "
+                  f"last {bp['last']['mean']:.3f}, swa {bp['swa']['mean']:.3f}, biased {bp['biased']['mean']:.3f}, "
+                  f"per-member nested {summary['per_seed_nested']['mean']:.3f} (cpu call: nested "
+                  f"{summary_cpu['by_protocol']['nested']['mean']:.3f})")
+            cv_json = tmp / "cv.json"
+            cv_json.write_text(json.dumps(summary))
+
+            # 9d. session accuracy from the crossval JSON, with time crops
+            kernels.reset_launches()
+            t = time.perf_counter()
+            sess = session_eval.evaluate(str(cv_json), crop_seconds=4.0, device=dev)
+            torch.cuda.synchronize()
+            sess_s = time.perf_counter() - t
+            launches = kernels.launches()
+            runs.append(launches)
+            rows = [sess[k] for k in ("session", "session_feature_avg", "per_window", "session_crop",
+                                      "session_crop_feature_avg", "per_window_crop")]
+            values = [v for r in rows for v in [r["mean"]] + r["folds"]]
+            n_crops = len(range(0, T - 500 + 1, 62)) + 1  # 4 s crops every 62 samples, and the full window
+            if not (all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values) and sess["reference_session"] is None
+                    and launches["kuramoto_pair_sums"] == CV_KW["folds"] * n_crops
+                    and launches["bandcov_grams"] == CV_KW["folds"] * n_crops):
+                raise AssertionError(f"9d session_eval: {values}, launches {launches}")
+            phase(f"9d session_eval.evaluate(the 9c JSON, 10-window sessions, 2000 draws, 4 s crops) on {dev}: "
+                  f"{sess_s:.3f} s; session {sess['session']['mean']:.3f}, feature-avg "
+                  f"{sess['session_feature_avg']['mean']:.3f}, per-window {sess['per_window']['mean']:.3f}, crop "
+                  f"{sess['session_crop']['mean']:.3f}; launches {launches}")
+
+            # 9e. a K=2 deployment ensemble, served on the card and the cpu
+            kernels.reset_launches()
+            t = time.perf_counter()
+            manifest = fit_ensemble.fit_ensemble(str(tmp / "ens"), model="logcov8", seeds=2, epochs=CV_KW["epochs"],
+                                                 model_kw=FLAGSHIP_KW, device=dev, verbose=False)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+            fit_launches = kernels.launches()
+            runs.append(fit_launches)
+            want = dict.fromkeys(kernels.LAUNCHES, 0)
+            want.update(kuramoto_pair_sums=1, bandcov_grams=4, logcov_feats=4)  # train and val split a member
+            w16 = synthetic_windows(16, 96)
+            card = EnsembleEngine.from_manifest(manifest, device=dev)
+            cpu = EnsembleEngine.from_manifest(manifest, device="cpu")
+            dlogit = float(np.abs(card.logits_batch(w16) - cpu.logits_batch(w16)).max())
+            dprob = float(np.abs(card.predict_batch(w16) - cpu.predict_batch(w16)).max())
+            if not (fit_launches == want and dlogit <= LOGIT_TOL and dprob <= PROB_TOL):
+                raise AssertionError(f"9e fit_ensemble: launches {fit_launches} (want {want}), |dlogit| {dlogit}, "
+                                     f"|dprob| {dprob}")
+            phase(f"9e fit_ensemble(logcov8 whitened, K=2, {CV_KW['epochs']} epochs, {3 * CV_PER_CLASS} trials) on "
+                  f"{dev}: {fit_s:.3f} s ({smi}); launches {fit_launches}; the manifest served on the card vs the "
+                  f"cpu, 16 windows: max |delta logit| {dlogit:.3e} (tol {LOGIT_TOL}), |delta prob| {dprob:.3e}")
+
+            # 9f. the streaming soak of the flagship member on the replay board
+            engine = stream_soak.make_engine("flagship", dev)
+            engine_cpu = stream_soak.make_engine("flagship", "cpu")
+            preds = []
+            kernels.reset_launches()
+            report = stream_soak.soak(engine, "flagship", SOAK_HOPS, SOAK_SPEED, 1.0, 5.0, 120.0,
+                                      on_prediction=preds.append)
+            torch.cuda.synchronize()
+            soak_launches = kernels.launches()
+            runs.append(soak_launches)
+            stream = np.concatenate(list(load_trials(trials, strict_shape=False).windows)).astype(np.float64)
+            idx = (np.asarray([p.counter for p in preds])[:, None] - T + 1 + np.arange(T)[None, :]) % len(stream)
+            dp = float(np.abs(np.stack([p.probs for p in preds])
+                              - engine_cpu.predict_batch(stream[idx].astype(np.float32))).max())
+            per_hop = {k: (soak_launches[k] - 1) / SOAK_HOPS for k in PATH_KERNELS}  # 1: the stream's warm-up
+            lat = report["latency_ms"]
+            if not (report["hops_decoded"] == SOAK_HOPS and all(v == 1 for v in per_hop.values()) and dp <= PROB_TOL):
+                raise AssertionError(f"9f stream_soak: {report}, launches a hop {per_hop}, |dprob| {dp}")
+            phase(f"9f stream_soak(flagship member, replay at {SOAK_SPEED:g}x, {SOAK_HOPS} hops of 1 s) on {dev} "
+                  f"({smi}): hops_missed_while_busy {report['hops_missed_while_busy']}, latency p50 {lat['p50']:.3f} "
+                  f"ms, p99 {lat['p99']:.3f} ms, {report['decoded_per_second']} decoded/s; launches a hop {per_hop} "
+                  f"(plus one warm-up call); predictions vs the cpu engine on the windows at their counters "
+                  f"{dp:.3e} (tol {PROB_TOL}); engine stats {report['engine_stats']}")
+        finally:
+            if old_data_dir is None:
+                os.environ.pop("NSD_DATA_DIR", None)
+            else:
+                os.environ["NSD_DATA_DIR"] = old_data_dir
+
+        # 9g. a traced flagship call
+        x = synthetic_windows(TRACED_BATCH, 97)
+        flagship.predict_batch(x)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        with device_trace(str(tmp / "trace"), device=dev) as log_dir, annotate("predict"):
+            probs = flagship.predict_batch(x)
+        traced_s = time.perf_counter() - t
+        trace_launches = kernels.launches()
+        runs.append(trace_launches)
+        trace_path = Path(log_dir) / TRACE_FILE
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        spans = [e for e in events if e.get("name") == "predict" and e.get("ph") == "X" and e.get("cat") != "gpu_user_annotation"]
+        if len(spans) != 1:
+            raise AssertionError(f"9g trace: {len(spans)} 'predict' ranges")
+        start, end = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+        gpu = [e for e in events if e.get("cat") == "kernel"]
+        inside = {name: sum(1 for e in gpu if kernel in e.get("name", "") and start <= e["ts"] <= end)
+                  for name, kernel in TRACE_KERNELS.items()}
+        busy_ms = sum(e.get("dur", 0) for e in gpu if start <= e["ts"] <= end) / 1e3
+        if not (all(v == 1 for v in inside.values()) and probs.shape == (TRACED_BATCH, 3)
+                and all(trace_launches[k] == 1 for k in PATH_KERNELS)):
+            raise AssertionError(f"9g trace: kernels inside the range {inside}, launches {trace_launches}, "
+                                 f"{len(gpu)} kernel events")
+        phase(f"9g device_trace + annotate('predict') around flagship predict_batch({TRACED_BATCH}) on {dev}: "
+              f"{traced_s:.3f} s wall traced ({smi}); {trace_path.stat().st_size} bytes, {len(events)} events, "
+              f"{len(gpu)} kernels, {busy_ms:.3f} ms of kernel time in the {(end - start) / 1e3:.3f} ms range; "
+              f"the range holds the kernels {inside}; launches {trace_launches}")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1839,6 +2203,9 @@ def main() -> int:
     # 8. the live path: boards, stream, collector, dashboard
     live_launches = check_live_path(dev, smi)
 
+    # 9. the analysis and evaluation path: analysis, tools, tracing
+    analysis_launches = check_analysis_path(dev, smi, flagship)
+
     # 6. report
     k_ms, p_ms, bound, by = times[TIMED[-1]]
     phase(f"kernel times below are at B={TIMED[-1]} (batch {TIMED[0]}: kernel {times[TIMED[0]][0]:.4f} ms, "
@@ -1848,7 +2215,7 @@ def main() -> int:
                                          flagship_trial_launches, cheb_launches, cheb_trial_launches,
                                          unw_launches, iir_launches, mix_launches, rec_launches,
                                          tcn_trial_launches, train_launches, cli_launches]
-                   + family_launches + live_launches)
+                   + family_launches + live_launches + analysis_launches)
 
     logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
                               iir_cascade=iir_times[TIMED[0]])

@@ -26,11 +26,16 @@ Butterworth design and the collector chain's operator in ops/iir.py).
   frontend/      the stdlib web dashboard and the Streamlit page
   train/         the training loop, augmentation, checkpoint/resume, and
                  the CLI (python -m neural_speech_decoding_tpu_torch.train)
-  utils/         device selection, latency metrics
+  analysis/      signal-file intake (CSV, EDF), filter metrics, and the
+                 offline and real-time filter-analysis CLIs
+  tools/         cross-validation, session-level accuracy, deployment
+                 ensemble fitting, the streaming soak
+  utils/         device selection, latency metrics, profiler tracing
 
 Entry points (`InferenceEngine`, `EnsembleEngine`, `mai_filter_batch`,
 `fused_preprocess`, `run_trials`, `train`, the stream, collector and
-dashboard CLIs, `record_trial`, `run_experiment`) run on CUDA unless the
+dashboard CLIs, `record_trial`, `run_experiment`, the analysis CLIs and
+`KuramotoSpatialFilter`, the tools, `device_trace`) run on CUDA unless the
 caller passes `device="cpu"`; without CUDA they raise.
 """
 

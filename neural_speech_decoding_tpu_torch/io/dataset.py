@@ -136,3 +136,24 @@ def load_trials(
         class_prefixes=tuple(class_prefixes),
         files=tuple(files),
     )
+
+
+def write_synthetic_trials(out_dir: os.PathLike, per_class: int, seed: int = 0) -> Path:
+    """Write `per_class` synthetic 3-class trials in the dataset's format,
+    for running the training and evaluation tools where no recorded
+    dataset is at hand. Per trial, sinusoids at random frequencies plus
+    noise as 8 sources are mixed into the channels by the class's own
+    matrix, so that the classes differ in covariance and a decoder can
+    learn them. Returns `out_dir`."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    samples, channels = 625, 8
+    rng = np.random.default_rng(seed)
+    mixes = [np.eye(channels) + 0.6 * rng.standard_normal((channels, channels)) for _ in THREE_CLASS_PREFIXES]
+    t = np.arange(samples) / 125.0
+    for k, (prefix, mix) in enumerate(zip(THREE_CLASS_PREFIXES, mixes)):
+        for i in range(per_class):
+            src = np.sin(2 * np.pi * rng.uniform(4, 30, channels) * t[:, None] + rng.uniform(0, 2 * np.pi, channels))
+            x = 10.0 * (src + 0.5 * rng.standard_normal((samples, channels))) @ mix.T
+            np.savetxt(out_dir / f"{prefix}_{k}{i:03d}.csv", x, delimiter=",", fmt="%.7f")
+    return out_dir

@@ -59,6 +59,13 @@ def analytic_signal(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.fft.ifft(spec * gain.reshape(shape), dim=dim)
 
 
+def instantaneous_phase(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """angle(hilbert(x)) along `dim`, the Kuramoto phase input (JAX
+    ops/hilbert.py:47-50), in x's dtype on x's device."""
+    z = analytic_signal(x, dim=dim)
+    return torch.atan2(z.imag, z.real)
+
+
 def analytic_signal_matmul(x_tc: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(real, imag) of the analytic signal over the time axis of [..., T, C]
     via the dense Hilbert operator, in x's dtype."""

@@ -11,6 +11,10 @@ x [T, C]:
      G[i, j] = sum_t (c2_i c2_j + s2_i s2_j) and the diagonal forced to 0
   4. ridge: out = x (I + lambda_eff P^T P)^-T
 
+The public surface beside the filter: `kuramoto_operator` (from phases),
+`kuramoto_operator_from_analytic`, and the sklearn-style
+`KuramotoSpatialFilter` / `kuramoto_spatial_filter` on [C, T] numpy data.
+
 Every function takes leading batch dimensions: [..., T, C]. The batched
 fast path gets G from ops/kernels/kuramoto.kuramoto_pair_sums, which is
 the hand-written CUDA kernel for a CUDA tensor and its plain twin for a
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from neural_speech_decoding_tpu_torch.config import FilterConfig
@@ -62,13 +67,30 @@ def _operator_from_gram(gram: torch.Tensor, t: int) -> torch.Tensor:
     return p * (1.0 - torch.eye(c, dtype=p.dtype, device=p.device))
 
 
+def _operator_from_cs(c2: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
+    """P [..., C, C] from cos 2phi and sin 2phi [..., T, C]: one
+    [C, 2T] x [2T, C] gram per window, as the JAX stages path forms it."""
+    m = torch.cat([c2, s2], dim=-2)
+    return _operator_from_gram(torch.matmul(m.transpose(-1, -2), m), c2.shape[-2])
+
+
+def kuramoto_operator(phases_tc: torch.Tensor) -> torch.Tensor:
+    """Pair-desynchrony operator from phases [..., T, C] -> P [..., C, C],
+    in the phases' dtype on their device (JAX ops/kuramoto.py:85-103)."""
+    return _operator_from_cs(torch.cos(2.0 * phases_tc), torch.sin(2.0 * phases_tc))
+
+
 def kuramoto_operator_from_parts(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """Pair-desynchrony operator from (real, imag) of the analytic signal
-    [..., T, C] -> P [..., C, C]: one [C, 2T] x [2T, C] gram per window, as
-    the JAX stages path forms it."""
-    c2, s2 = cos_sin_2phi(re, im)
-    m = torch.cat([c2, s2], dim=-2)
-    return _operator_from_gram(torch.matmul(m.transpose(-1, -2), m), re.shape[-2])
+    [..., T, C] -> P [..., C, C], with no angle, cos or sin: cos 2phi =
+    (re^2 - im^2) / |z|^2, sin 2phi = 2 re im / |z|^2."""
+    return _operator_from_cs(*cos_sin_2phi(re, im))
+
+
+def kuramoto_operator_from_analytic(z: torch.Tensor) -> torch.Tensor:
+    """The operator from the complex analytic signal z [..., T, C] (JAX
+    ops/kuramoto.py:135-140)."""
+    return kuramoto_operator_from_parts(z.real, z.imag)
 
 
 def _mm_tiny(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -155,6 +177,37 @@ def mai_filter(
         )
         out = torch.linalg.solve(a, x.transpose(-1, -2)).transpose(-1, -2)
     return out.to(torch.float32)
+
+
+class KuramotoSpatialFilter:
+    """sklearn-style estimator over the filter on [C, T] numpy data, the
+    vendored package's API surface (JAX ops/kuramoto.py:285-307). It runs
+    `mai_filter` in "highest" mode (float64, FFT analytic signal, LU solve)
+    on `device`, CUDA unless the caller names another, and returns float64
+    numpy [C, T] (the filter's float32 output, widened, as in JAX)."""
+
+    def __init__(self, lambd: float = 1e-25, renorm: str = "diag", device: DeviceLike = None):
+        self.lambd = float(lambd)
+        self.renorm = renorm
+        self.device = resolve_device(device)
+        self._config = FilterConfig(lambd=self.lambd, renorm=renorm)
+
+    def fit(self, X, y=None):
+        return self
+
+    def transform(self, X, y=None):
+        x_tc = torch.from_numpy(np.ascontiguousarray(np.asarray(X, dtype=np.float64).T))
+        out = mai_filter(x_tc.to(self.device), self._config)
+        return out.cpu().numpy().T.astype(np.float64)
+
+    def fit_transform(self, X, y=None):
+        return self.fit(X, y).transform(X, y)
+
+
+def kuramoto_spatial_filter(data_ct, lambda_val: float = 1e-25, device: DeviceLike = None):
+    """Function form of the filter on [C, T] data (the vendored package's
+    `mindsai_python_filter` signature; JAX ops/kuramoto.py:310-313)."""
+    return KuramotoSpatialFilter(lambd=lambda_val, device=device).fit_transform(data_ct)
 
 
 def _mai_filter_batch_fused(x_btc: torch.Tensor, config: FilterConfig) -> torch.Tensor:

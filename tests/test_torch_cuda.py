@@ -1094,3 +1094,74 @@ def test_turbo_and_depth_on_cuda(cuda):
     gpu = decoder_logits(params_from_jax(p, cuda), xf.to(cuda), cfg).cpu().numpy()
     cpu = decoder_logits(p, xf, cfg).numpy()
     assert np.abs(gpu - cpu).max() <= 1e-4
+
+
+def _recording_ct(t: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    ts = np.arange(t) / 125.0
+    x = np.sin(2 * np.pi * (8 + np.arange(C))[:, None] * ts + rng.uniform(0, 2 * np.pi, (C, 1)))
+    return 20.0 * (x + 0.35 * rng.standard_normal((C, t)))
+
+
+def test_filter_surface_float64_cuda_matches_cpu(cuda):
+    """The float64 surface on the card against the CPU, within 1e-9 of the
+    largest |value|: the operator from phases and from the analytic signal,
+    the phases, and the estimator (float64 work, float32 output)."""
+    from neural_speech_decoding_tpu_torch.ops import hilbert, kuramoto
+
+    x_ct = _recording_ct(625 * 4, 1)
+    x = torch.from_numpy(x_ct.T.copy())
+    for fn in (hilbert.instantaneous_phase,):
+        got, want = fn(x.to(cuda), dim=0).cpu(), fn(x, dim=0)
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-9
+    phases = hilbert.instantaneous_phase(x, dim=0)
+    got, want = kuramoto.kuramoto_operator(phases.to(cuda)).cpu(), kuramoto.kuramoto_operator(phases)
+    assert got.dtype == torch.float64 and ((got - want).abs().max() / want.abs().max()).item() <= 1e-9
+    z = hilbert.analytic_signal(x, dim=0)
+    got = kuramoto.kuramoto_operator_from_analytic(z.to(cuda)).cpu()
+    want = kuramoto.kuramoto_operator_from_analytic(z)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-9
+    for lambd in (1e-25, 1e-34):
+        got = kuramoto.KuramotoSpatialFilter(lambd=lambd).fit_transform(x_ct)
+        want = kuramoto.KuramotoSpatialFilter(lambd=lambd, device="cpu").fit_transform(x_ct)
+        assert got.dtype == np.float64 and np.abs(got - want).max() / np.abs(want).max() <= 1e-9
+
+
+def test_device_trace_names_the_kernels(cuda, tmp_path):
+    """A traced predict_batch of the flagship names the pair-sums, gram and
+    feature kernels inside the annotated range."""
+    import json as _json
+
+    from neural_speech_decoding_tpu_torch.utils.tracing import TRACE_FILE, annotate, device_trace
+
+    engine = EnsembleEngine.from_manifest(str(FLAGSHIP))
+    x = _board_windows(64, 5)
+    engine.predict_batch(x)
+    with device_trace(str(tmp_path)) as log_dir, annotate("predict"):
+        engine.predict_batch(x)
+    events = _json.loads((tmp_path / TRACE_FILE).read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    for kernel in ("pair_sums_kernel", "band_grams_kernel", "logcov_feats_kernel"):
+        assert any(kernel in n for n in names), (kernel, sorted(names)[:20])
+    assert log_dir == str(tmp_path) and any(e.get("name") == "predict" for e in events)
+
+
+def test_fit_ensemble_served_on_cuda(cuda, tmp_path, monkeypatch):
+    """fit_ensemble on the card (K=2, logcov8 whitened, 2 epochs) on
+    synthetic trial CSVs; its manifest served on the card against the CPU
+    within 1e-5 of probability."""
+    from neural_speech_decoding_tpu_torch.collector.chain import write_trial_csv
+    from neural_speech_decoding_tpu_torch.tools.fit_ensemble import fit_ensemble
+
+    trials = tmp_path / "trials"
+    for i, w in enumerate(_board_windows(24, 9)):
+        write_trial_csv(trials / f"{('food', 'water', 'backgroundnoise')[i % 3]}_{i:03d}.csv", w)
+    monkeypatch.setenv("NSD_DATA_DIR", str(trials))
+    kernels.reset_launches()
+    manifest = fit_ensemble(str(tmp_path / "ens"), model="logcov8", seeds=2, epochs=2,
+                            model_kw={"whiten": True, "dropout": 0.0}, verbose=False)
+    assert kernels.launches()["kuramoto_pair_sums"] == 1 and kernels.launches()["bandcov_grams"] >= 2
+    x = _board_windows(16, 10)
+    got = EnsembleEngine.from_manifest(manifest).predict_batch(x)
+    want = EnsembleEngine.from_manifest(manifest, device="cpu").predict_batch(x)
+    assert np.abs(got - want).max() <= 1e-5

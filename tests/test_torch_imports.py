@@ -1,5 +1,6 @@
 """The port stands alone: neither its package nor the scripts that drive it
-on the card (chip_smoke.py) import JAX or anything of the JAX package."""
+on the card (chip_smoke.py) import JAX, anything of the JAX package, or the
+repository's `tools` package (which drives the JAX package)."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "neural_speech_decoding_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "neural_speech_decoding_tpu")
+FORBIDDEN = ("jax", "jaxlib", "neural_speech_decoding_tpu", "tools")
 
 
 def _imported_modules(path: Path):
