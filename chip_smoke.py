@@ -19,7 +19,14 @@ of the checkout. One line per phase, each with its elapsed seconds:
      twice the twin's distance from float64; the pair sums also at T = 97
      (a prime: a direct-DFT stage) and T = 1250 (10 s at 125 Hz), B = 1
      and 37, and timed on burst windows and board-like windows, with the
-     number of samples each block sends down the kernel's near-zero path
+     number of samples each block sends down the kernel's near-zero path;
+     the band grams also within one float32 ulp (BAND_GRAMS_F64_TOL) of
+     each window's max|G| against float64, on the flagship's layout at
+     every batch and on the logcov, logcov12 and a 16-band layout at
+     B = 37, with the kernel's registers and spills, and timed at B = 1
+     too, beside its padded torch.matmul yardstick in turns: each call's
+     mean (CUDA events around 20 back-to-back calls), with whether L2 was
+     warm, and (3d) its device-only time
   3c. the slice-3 kernels the same way: the feature kernel in Chebyshev
      mode (flags also against the rational mode's), the Clenshaw matrix
      log (on the unwhitened band covariances; library yardstick: the eigh
@@ -144,6 +151,10 @@ of the checkout. One line per phase, each with its elapsed seconds:
      9g. the flagship's predict_batch(1024) inside device_trace and
          annotate("predict"): the trace file, and the pair-sums, gram and
          feature kernels inside the annotated range
+  3d. the device-only times (torch.profiler's kernel events over 20
+     back-to-back calls) of phase 3's timed calls: the band grams and
+     their yardstick at B = 1, 1024 and 16384, every other kernel at
+     B = 1024; after phase 9, so that 9g's trace is the process's first
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -153,6 +164,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import signal
 import subprocess
@@ -208,6 +220,11 @@ PAIR_SUMS_ABS_TOL = 2e-4
 # (cuBLAS) agree to 1e-5 of each window's max|G|; the limit is per window
 # because a railed window's sums are 1e12 times the others'.
 BAND_GRAMS_REL_TOL = 1e-5
+# The gram kernel sums exact float64 products in float64 and rounds each
+# pair once: against the float64 twin it errs at most half a float32 ulp of
+# |G| (2^-24) plus the float64 sums' own error (n * 2^-53 of max|G|), so
+# at most one float32 ulp (2^-23) of each window's max|G|.
+BAND_GRAMS_F64_TOL = 1.2e-7
 # Features: the JAX package's kernel-vs-stages limit, 5e-5 max(scale, 1),
 # with the scale taken per window, as for the grams: a railed window's
 # features (about 33) would loosen the limit for the others (about 2.4).
@@ -239,6 +256,12 @@ RUN_TRIALS_DEADLINE_S = 120
 BATCHES = (1, 37, 1024, 16384)  # the kernel checks' batch sizes
 OTHER_T = (97, 1250)  # other window lengths of the pair-sums check
 TIMED = (1024, 16384)  # those also timed; the report's times are at the last
+GRAM_TIMED = (1,) + TIMED  # the band grams also timed at one live window
+# the band grams on other layouts (phase 3): logcov's 4 broad bands,
+# logcov12's 12 (R = 900), and 16 bands of 1 to 61 rows, most not multiples of 4
+GRAM_LAYOUTS = ("logcov", "logcov12", "16 bands")
+L2_BYTES = 50e6  # H100 SXM L2 cache
+PROFILE_LEAD = 3  # calls traced ahead of those device_ms times
 IIR_SHAPE_BATCHES = (2048, 3072, 6144, 32768)  # the IIR cascade's two shapes also timed at these
 
 _T0 = time.perf_counter()
@@ -260,6 +283,45 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> tuple[float, float, list]:
+    """Device-only time of a call of `fn`: for each CUDA kernel that the
+    calls launch, the mean duration of its kernel events in a torch.profiler
+    trace of PROFILE_LEAD + iters back-to-back calls (after a warm-up call), times
+    its launches a call; summed over the kernels. A session may miss a
+    kernel event or two (18 or 19 of 20 launches of one kernel were seen
+    on an H100 with torch 2.11), so each kernel's time is the mean of the
+    events it has, and the PROFILE_LEAD calls keep the iters calls clear of
+    the session's start. Returns (ms, kernel events a call, kernel names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    calls = PROFILE_LEAD + iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    by_name: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name.setdefault(e["name"], []).append(e["dur"])
+    if not by_name:
+        raise AssertionError("the profiler recorded no kernel on the card")
+    us = sum(np.mean(d) * round(len(d) / calls) for d in by_name.values())
+    return us / 1e3, sum(map(len, by_name.values())) / calls, sorted(n[:60] for n in by_name)
+
+
+def l2_state(nbytes: float) -> str:
+    """Whether back-to-back calls on `nbytes` of input find it in L2."""
+    if nbytes < L2_BYTES:
+        return f"L2 warm: {nbytes / 1e6:.3g} MB re-read back to back, under the {L2_BYTES / 1e6:.0f} MB L2"
+    return f"L2 cold: {nbytes / 1e6:.3g} MB streamed, over the {L2_BYTES / 1e6:.0f} MB L2"
 
 
 def kernel_resources(log: str | None, kernel: str) -> str:
@@ -375,6 +437,77 @@ def band_grams_bound_ms(b: int, rows: int, nb: int, band_rows: int) -> tuple[flo
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def time_band_grams(y: torch.Tensor, offsets, device_jobs: dict) -> tuple:
+    """Phase 3: the gram kernel's call mean (cuda_ms) on rows y, beside its
+    library yardstick, one torch.matmul on the bands zero-padded to the
+    widest (the port never calls it), in turns (kernel, library, library,
+    kernel); the twin's time and the bound. Both calls go into
+    device_jobs for their device-only times. Returns (kernel ms, plain ms,
+    bound ms, bound by, library ms, text); the kernel's and the library's
+    ms are the means of their two turns."""
+    from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams, band_grams_plain
+
+    padded = padded_bands(y, offsets)
+    pt = padded.transpose(1, 2)
+
+    def kernel():
+        return band_grams(y, offsets)
+
+    def library():
+        return torch.matmul(pt, padded)
+
+    calls = [cuda_ms(fn, 20) for fn in (kernel, library, library, kernel)]
+    b = y.shape[0]
+    device_jobs[f"bandcov_grams B={b}"] = kernel
+    device_jobs[f"library B={b}"] = library
+    plain_ms = cuda_ms(lambda: band_grams_plain(y, offsets), 10)
+    bound, by = band_grams_bound_ms(b, y.shape[1], len(offsets) - 1, offsets[-1] - offsets[0])
+    text = (f"kernel call mean {calls[0]:.4f}, {calls[3]:.4f} ms ({l2_state(4 * y.numel())}); library (one "
+            f"torch.matmul on bands zero-padded to {padded.shape[1]} rows) call mean {calls[1]:.4f}, "
+            f"{calls[2]:.4f} ms ({l2_state(4 * padded.numel())}); plain {plain_ms:.4f} ms; "
+            f"bound {bound:.4f} ms ({by})")
+    return (calls[0] + calls[3]) / 2, plain_ms, bound, by, (calls[1] + calls[2]) / 2, text
+
+
+def check_gram_layouts(dev) -> float:
+    """Phase 3: the gram kernel on the layouts of GRAM_LAYOUTS, 37 windows
+    of Gaussian rows, against its twin (BAND_GRAMS_REL_TOL) and float64
+    (BAND_GRAMS_F64_TOL), each over each window's max|G|. Returns the
+    largest error against the twin."""
+    from neural_speech_decoding_tpu_torch.models import logcov
+    from neural_speech_decoding_tpu_torch.models.registry import get_model
+    from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams, band_grams_plain
+
+    worst = 0.0
+    for name in GRAM_LAYOUTS:
+        if name.startswith("logcov"):
+            _, slices = logcov._band_projector(T, get_model(name).config)
+            offsets = logcov._band_offsets(slices)
+        else:  # 16 bands of 1 to 61 rows
+            offsets = (0,) + tuple(int(o) for o in np.cumsum(np.random.default_rng(16).integers(1, 62, 16)))
+        rng = np.random.default_rng(len(offsets))
+        y = torch.from_numpy(rng.standard_normal((37, offsets[-1], C)).astype(np.float32)).to(dev)
+        got = band_grams(y, offsets)
+        want = band_grams_plain(y, offsets)
+        exact = band_grams_plain(y.double(), offsets)
+        torch.cuda.synchronize()
+        norm = exact.abs().amax(dim=1, keepdim=True)  # each window's max|G|
+        err = ((got - want).abs() / norm).max().item()
+        k64 = ((got.double() - exact).abs() / norm).max().item()
+        p64 = ((want.double() - exact).abs() / norm).max().item()
+        if not (got.shape == want.shape and torch.isfinite(got).all() and err <= BAND_GRAMS_REL_TOL
+                and k64 <= BAND_GRAMS_F64_TOL):
+            raise AssertionError(f"band grams, {name} layout: max err {err} of max|G| (tol "
+                                 f"{BAND_GRAMS_REL_TOL}), {k64} against float64 (tol {BAND_GRAMS_F64_TOL})")
+        widths = np.diff(offsets)
+        phase(f"band grams, {name} layout ({len(widths)} bands of {widths.min()} to {widths.max()} rows, "
+              f"{int((widths % 4 != 0).sum())} not a multiple of 4; R = {offsets[-1]}) B=37: max err {err:.3e} "
+              f"of each window's max|G| (tol {BAND_GRAMS_REL_TOL}); vs float64: kernel {k64:.3e} "
+              f"(tol {BAND_GRAMS_F64_TOL}), twin {p64:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
 def logcov_feats_bound_ms(b: int, nb: int, terms: int) -> tuple[float, str]:
     """Least time for the features of b windows and nb bands. Bytes: the
     gram pairs, traces and W W^T pairs read once, the features (float32)
@@ -485,11 +618,12 @@ def scipy_zero_phase(x_btc: np.ndarray, sos: np.ndarray) -> np.ndarray:
     return scipy.signal.sosfilt(sos, fwd[:, ::-1], axis=1)[:, ::-1]
 
 
-def check_chebyshev_feats(dev, build_log):
+def check_chebyshev_feats(dev, build_log, device_jobs: dict):
     """Phase 3c: the feature kernel in Chebyshev mode against its twin and
     float64 on the gram kernel's output (at most F64_RATIO times the twin's
     error against float64), flags against the twin's and the rational
-    mode's. Returns (max abs err, {B: times})."""
+    mode's; its call at B = TIMED[0] into device_jobs. Returns
+    (max abs err, {B: times})."""
     from neural_speech_decoding_tpu_torch.models import logcov
     from neural_speech_decoding_tpu_torch.ops.kernels.bandcov import band_grams
     from neural_speech_decoding_tpu_torch.ops.kernels.logmfeats import logcov_feats, logcov_feats_plain
@@ -539,6 +673,9 @@ def check_chebyshev_feats(dev, build_log):
             p_ms = start.elapsed_time(end)  # the twin, timed once (its first call)
             bound, by = logcov_feats_cheb_bound_ms(b, nb, degree)
             times[b] = (f_ms, p_ms, bound, by, None)
+            if b == TIMED[0]:
+                device_jobs["logcov_feats_chebyshev"] = functools.partial(
+                    logcov_feats, grams, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
             # where the time goes: without the series (degree 0), and on
             # multiples of the identity (no reflector, no QL sweep)
             d0_ms = cuda_ms(lambda: logcov_feats(grams, k.tr_scaled, k.wwt_pairs, k.coeffs[:1], **k.scalars), 20)
@@ -552,15 +689,15 @@ def check_chebyshev_feats(dev, build_log):
     return err_abs, times
 
 
-def check_clenshaw(dev, build_log):
+def check_clenshaw(dev, build_log, device_jobs: dict):
     """Phase 3c: the Clenshaw kernel on the unwhitened logcov8 band
     covariances of board-like windows (in the domain by the shrinkage
     floor), against its twin and float64 (at most F64_RATIO times the
     twin's error); the port's logm="eigh" route
     (torch.linalg.eigh in batches of at most 16384 matrices, log, product)
     as the library yardstick: it computes the exact log, not the
-    polynomial. Returns
-    (max abs err, {B: times})."""
+    polynomial; the kernel's call at B = TIMED[0] into device_jobs.
+    Returns (max abs err, {B: times})."""
     from neural_speech_decoding_tpu_torch.config import FilterConfig
     from neural_speech_decoding_tpu_torch.models import logcov
     from neural_speech_decoding_tpu_torch.models.registry import get_model
@@ -611,6 +748,8 @@ def check_clenshaw(dev, build_log):
             l_ms = cuda_ms(lambda: spd.logm_eigh(s), 3)
             bound, by = clenshaw_bound_ms(t.shape[0], cfg.cheb_degree)
             times[b] = (k_ms, p_ms, bound, by, l_ms)
+            if b == TIMED[0]:
+                device_jobs["logm_clenshaw"] = functools.partial(clenshaw, t, coeffs)
             line += (f"; kernel {k_ms:.4f} ms (degree 0 {d0_ms:.4f} ms, identity matrices {eye_ms:.4f} ms; "
                      f"wrapper with the torch map and log(tr/C) {w_ms:.4f} ms), "
                      f"plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by}), library: the logm=eigh route "
@@ -620,7 +759,7 @@ def check_clenshaw(dev, build_log):
     return err_abs, times
 
 
-def check_iir(dev, build_log):
+def check_iir(dev, build_log, device_jobs: dict):
     """Phase 3c: the zero-phase IIR cascade on detrended board-like windows
     against its twin (timed once: a loop over T) and scipy in float64, at
     most F64_RATIO times the twin's distance from float64; at the timed
@@ -628,8 +767,8 @@ def check_iir(dev, build_log):
     it runs, the time of both launch shapes (staged in shared memory at
     G = 2, in global memory at G = 1; each also against the twin), and the
     staged shape's bulk copy against its plain copy; then both shapes at
-    IIR_SHAPE_BATCHES, either side of the plan's switch. Returns (max abs
-    err, {B: times})."""
+    IIR_SHAPE_BATCHES, either side of the plan's switch; the kernel's call
+    at B = TIMED[0] into device_jobs. Returns (max abs err, {B: times})."""
     from neural_speech_decoding_tpu_torch.ops.kernels.iir import (
         STAGED_LANES,
         _launch,
@@ -693,6 +832,8 @@ def check_iir(dev, build_log):
             p_ms = start.elapsed_time(end)  # the twin, timed once
             bound, by = iir_bound_ms(b, sections)
             times[b] = (k_ms, p_ms, bound, by, None)
+            if b == TIMED[0]:
+                device_jobs["iir_cascade"] = functools.partial(iir_cascade, x, sos)
             line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms (once), bound {bound:.4f} ms ({by})"
             phase(line)
             phase(f"iir cascade B={b} plan: G={plan.lanes} lanes a series, K={k} sections a lane, "
@@ -1800,6 +1941,7 @@ def main() -> int:
     # 3. kernel against its plain twin
     max_err = 0.0
     times = {}
+    device_jobs = {}  # label -> a call whose device-only time is measured after phase 9
     for b in BATCHES:
         x = pair_sums_inputs(b, seed=b, device=dev)
         got = kuramoto_pair_sums(x)
@@ -1828,6 +1970,8 @@ def main() -> int:
             bound, by = pair_sums_bound_ms(b)
             times[b] = (k_ms, p_ms, bound, by)
             line += f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound:.4f} ms ({by})"
+            if b == TIMED[0]:
+                device_jobs["kuramoto_pair_sums"] = functools.partial(kuramoto_pair_sums, x)
         phase(line)
         del x, got, want
 
@@ -1890,8 +2034,9 @@ def main() -> int:
             del x, got, want, exact
 
     # 3 (continued). the flagship's two kernels against their twins
+    phase(f"band grams kernel: {kernel_resources(logs.get('bandcov_grams'), 'band_grams_kernel')}")
     gram_err = feat_err = 0.0
-    logcov_times = {}
+    logcov_times, gram_times = {}, {}
     for b in BATCHES:
         k = logcov_kernel_inputs(b, seed=b + 1, dev=dev)
         got = band_grams(k.yw, k.offsets)
@@ -1905,9 +2050,14 @@ def main() -> int:
         gram_err = max(gram_err, err)
         k64 = ((got.double() - exact).abs() / norm).max().item()
         p64 = ((want.double() - exact).abs() / norm).max().item()
+        if not k64 <= BAND_GRAMS_F64_TOL:
+            raise AssertionError(f"band grams B={b}: {k64} of max|G| against float64 > {BAND_GRAMS_F64_TOL}")
         line = (f"band grams B={b}: max err {err:.3e} of each window's max|G| (tol {BAND_GRAMS_REL_TOL}); "
-                f"vs float64: kernel {k64:.3e}, twin {p64:.3e}")
+                f"vs float64: kernel {k64:.3e} (tol {BAND_GRAMS_F64_TOL}), twin {p64:.3e}")
         del exact
+        if b in GRAM_TIMED:
+            gram_times[b] = time_band_grams(k.yw, k.offsets, device_jobs)
+            line += "; " + gram_times[b][-1]
 
         # the feature kernel, on the gram kernel's output (its input on the path)
         feats, flags = logcov_feats(got, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
@@ -1940,31 +2090,28 @@ def main() -> int:
         del exact_f, exact_flags, fdiff
         if b in TIMED:
             nb = len(k.offsets) - 1
-            g_ms = cuda_ms(lambda: band_grams(k.yw, k.offsets), 20)
-            gp_ms = cuda_ms(lambda: band_grams_plain(k.yw, k.offsets), 10)
-            padded = padded_bands(k.yw, k.offsets)
-            pt = padded.transpose(1, 2)
-            gl_ms = cuda_ms(lambda: torch.matmul(pt, padded), 20)
-            del padded, pt
-            g_bound, g_by = band_grams_bound_ms(b, k.yw.shape[1], nb, k.offsets[-1] - k.offsets[0])
             f_ms = cuda_ms(lambda: logcov_feats(got, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars), 20)
             fp_ms = cuda_ms(lambda: logcov_feats_plain(got, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars), 3)
             f_bound, f_by = logcov_feats_bound_ms(b, nb, (len(k.coeffs) - 1) // 2)
             logcov_times[b] = {
-                "bandcov_grams": (g_ms, gp_ms, g_bound, g_by, gl_ms),
+                "bandcov_grams": gram_times[b][:5],
                 "logcov_feats": (f_ms, fp_ms, f_bound, f_by, None),
             }
-            line += (f"; kernel {g_ms:.4f} ms, plain {gp_ms:.4f} ms, padded bmm {gl_ms:.4f} ms, "
-                     f"bound {g_bound:.4f} ms ({g_by})")
             line2 += f"; kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, bound {f_bound:.4f} ms ({f_by})"
+            if b == TIMED[0]:
+                device_jobs["logcov_feats"] = functools.partial(
+                    logcov_feats, got, k.tr_scaled, k.wwt_pairs, k.coeffs, **k.scalars)
         phase(line)
         phase(line2)
         del k, got, want, feats, flags, want_f, want_flags
 
+    # 3 (continued). the band grams on the other layouts
+    gram_err = max(gram_err, check_gram_layouts(dev))
+
     # 3c. the slice-3 kernels against their twins
-    cheb_err, cheb_times = check_chebyshev_feats(dev, logs.get("logcov_feats"))
-    logm_err, logm_times = check_clenshaw(dev, logs.get("logm_clenshaw"))
-    iir_err, iir_times = check_iir(dev, logs.get("iir_cascade"))
+    cheb_err, cheb_times = check_chebyshev_feats(dev, logs.get("logcov_feats"), device_jobs)
+    logm_err, logm_times = check_clenshaw(dev, logs.get("logm_clenshaw"), device_jobs)
+    iir_err, iir_times = check_iir(dev, logs.get("iir_cascade"), device_jobs)
 
     # 4. the main path
     engine = InferenceEngine(model_path=str(CHECKPOINT))
@@ -2206,6 +2353,13 @@ def main() -> int:
     # 9. the analysis and evaluation path: analysis, tools, tracing
     analysis_launches = check_analysis_path(dev, smi, flagship)
 
+    # 3d. the device-only times of phase 3's calls, measured here and not
+    # in phase 3: with these torch.profiler sessions in phase 3, 9g's
+    # trace was seen to hold no pair-sums kernel event in its range (H100,
+    # torch 2.11), so 9g keeps the process's first session
+    device_only = {label: device_ms(fn, 20) for label, fn in device_jobs.items()}
+    del device_jobs
+
     # 6. report
     k_ms, p_ms, bound, by = times[TIMED[-1]]
     phase(f"kernel times below are at B={TIMED[-1]} (batch {TIMED[0]}: kernel {times[TIMED[0]][0]:.4f} ms, "
@@ -2221,9 +2375,18 @@ def main() -> int:
                               iir_cascade=iir_times[TIMED[0]])
     logcov_times[TIMED[-1]].update(logcov_feats_chebyshev=cheb_times[TIMED[-1]], logm_clenshaw=logm_times[TIMED[-1]],
                                iir_cascade=iir_times[TIMED[-1]])
-    for name, g in logcov_times[TIMED[0]].items():
-        phase(f"{name} at B={TIMED[0]}: kernel {g[0]:.4f} ms, plain {g[1]:.4f} ms, bound {g[2]:.4f} ms"
-              + ("" if g[4] is None else f", library {g[4]:.4f} ms"))
+    at_first = dict(kuramoto_pair_sums=times[TIMED[0]] + (None,), **logcov_times[TIMED[0]])
+    for name, g in at_first.items():
+        dev_ms, per_call, names = device_only[name if name != "bandcov_grams" else f"{name} B={TIMED[0]}"]
+        phase(f"{name} at B={TIMED[0]}: kernel {g[0]:.4f} ms (call mean), device-only {dev_ms:.4f} ms "
+              f"({per_call:.3g} kernel events a call: {', '.join(names)}), plain {g[1]:.4f} ms, bound "
+              f"{g[2]:.4f} ms" + ("" if g[4] is None else f", library {g[4]:.4f} ms") + f" ({smi})")
+    for b, g in gram_times.items():
+        k_dev, l_dev = device_only[f"bandcov_grams B={b}"], device_only[f"library B={b}"]
+        phase(f"bandcov_grams at B={b}: call mean {g[0]:.4f} ms, device-only {k_dev[0]:.4f} ms ({k_dev[1]:.3g} "
+              f"kernel events a call); library call mean {g[4]:.4f} ms, device-only {l_dev[0]:.4f} ms "
+              f"({l_dev[1]:.3g} kernel events a call: {', '.join(l_dev[2])}); plain {g[1]:.4f} ms; bound "
+              f"{g[2]:.4f} ms ({g[3]}); {smi}")
     report = {
         "kernels": [
             {

@@ -187,13 +187,13 @@ def _logcov_kernel_inputs(batch: int, dev, cold: bool, logm: str = "rational"):
 
 @pytest.mark.parametrize("batch", [1, 37, 1024])
 def test_band_grams_kernel_matches_plain(cuda, batch):
-    """Pair sums of at most 80 float32 products (logcov8), summed in
-    different orders by the kernel (4 chains, then pairwise) and by the
-    twin (cuBLAS): a running float32 sum of n terms errs by at most
-    n * 2^-24 of the sum of |terms|, which is at most max|G| of the window;
-    for the widest shipped band (180 rows) that is 1.1e-5. So the limit is
-    1e-5 of each window's max|G| (the railed window is 1e12 times larger
-    than the others, so a limit on the whole batch would say nothing)."""
+    """Pair sums of at most 80 float32 products (logcov8), summed by the
+    kernel in float64 and rounded once, and by the twin (cuBLAS) in
+    float32: a running float32 sum of n terms errs by at most n * 2^-24 of
+    the sum of |terms|, which is at most max|G| of the window; for the
+    widest shipped band (180 rows) that is 1.1e-5. So the limit is 1e-5 of
+    each window's max|G| (the railed window is 1e12 times larger than the
+    others, so a limit on the whole batch would say nothing)."""
     k = _logcov_kernel_inputs(batch, cuda, cold=False)
     before = kernels.launches()["bandcov_grams"]
     got = band_grams(k.yw, k.offsets)
@@ -219,6 +219,69 @@ def test_band_grams_kernel_other_band_layouts(cuda, family):
     assert got.shape == (37, (len(offsets) - 1) * 36)
     per_window = want.abs().amax(dim=1, keepdim=True)
     assert ((got - want).abs() / per_window).max().item() <= 1e-5
+
+
+def _gram_layout(name: str):
+    """Band offsets: a family's layout, or 16 bands of 1 to 61 rows."""
+    if name == "16 bands":
+        return (0,) + tuple(int(o) for o in np.cumsum(np.random.default_rng(16).integers(1, 62, 16)))
+    _, slices = logcov._band_projector(T, get_model(name).config)
+    return (0,) + tuple(sl.stop for sl in slices)
+
+
+def _gram_errors(y: torch.Tensor, offsets):
+    """The kernel's grams, and their largest error of each window's max|G|
+    against the float32 twin and against the float64 twin."""
+    got = band_grams(y, offsets)
+    want = band_grams_plain(y, offsets)
+    exact = band_grams_plain(y.double(), offsets)
+    torch.cuda.synchronize()
+    norm = exact.abs().amax(dim=1, keepdim=True).clamp(min=1e-300)
+    return got, ((got - want).abs() / norm).max().item(), ((got.double() - exact).abs() / norm).max().item()
+
+
+@pytest.mark.parametrize("batch", [1, 37, 1024, 16384])
+def test_band_grams_kernel_within_one_ulp_of_float64(cuda, batch):
+    """The flagship's rows (a railed window and an all-zero one among them;
+    bands of 30 and 50 rows, not multiples of 4): the kernel sums exact
+    float64 products in float64 and rounds once, so it lies within one
+    float32 ulp (2^-23, 1.2e-7) of each window's max|G| from the float64
+    twin, beside the 1e-5 limit against the float32 twin."""
+    k = _logcov_kernel_inputs(batch, cuda, cold=False)
+    got, err, err64 = _gram_errors(k.yw, k.offsets)
+    assert got.shape == (batch, 8 * 36) and torch.isfinite(got).all()
+    assert err <= 1e-5 and err64 <= 1.2e-7
+
+
+@pytest.mark.parametrize("layout", ["logcov", "logcov12", "16 bands"])
+def test_band_grams_kernel_other_layouts_within_one_ulp(cuda, layout):
+    """The broad 4-band layout, the 12-band one (R = 900) and 16 bands of
+    1 to 61 rows, B = 37 Gaussian rows: within one float32 ulp of each
+    window's max|G| from float64, and 1e-5 from the float32 twin."""
+    offsets = _gram_layout(layout)
+    y = torch.from_numpy(np.random.default_rng(4).standard_normal((37, offsets[-1], C)).astype(np.float32)).to(cuda)
+    got, err, err64 = _gram_errors(y, offsets)
+    assert got.shape == (37, (len(offsets) - 1) * 36) and torch.isfinite(got).all()
+    assert err <= 1e-5 and err64 <= 1.2e-7
+
+
+def test_band_grams_lean_path_launches_the_kernel(cuda):
+    """Under no_grad, and for rows that need no gradient, the wrapper skips
+    the autograd Function but still launches the kernel (counted once a
+    call), with the values of the launch through the Function; a bad
+    layout raises after a good one was cached."""
+    k = _logcov_kernel_inputs(37, cuda, cold=False)
+    before = kernels.launches()["bandcov_grams"]
+    with torch.no_grad():
+        a = band_grams(k.yw.clone().requires_grad_(True), k.offsets)
+    b = band_grams(k.yw, k.offsets)
+    c = band_grams(k.yw.clone().requires_grad_(True), k.offsets)
+    torch.cuda.synchronize()
+    assert kernels.launches()["bandcov_grams"] == before + 3
+    assert a.grad_fn is None and b.grad_fn is None and c.grad_fn is not None
+    assert torch.equal(a, b) and torch.equal(b, c.detach())
+    with pytest.raises(ValueError):
+        band_grams(k.yw, k.offsets[:-1] + (451,))
 
 
 @pytest.mark.parametrize("batch", [1, 37, 1024])

@@ -28,6 +28,14 @@ the CPU, where no card runs them.
   the CPU twin; the launch plan's rule at the main path's batches and at
   the edge of a block's shared memory on an H100, and the staged shapes'
   shared-memory reads free of bank conflicts.
+- Band grams (csrc/bandcov_grams.cu): a warp a (window, band), 4-row
+  chunks through the m8n8k4 float64 fragments (one loaded value a lane,
+  both its A and its B element; zero lanes past a band's end; the
+  accumulator-to-pair map), for the logcov5, logcov8 and logcov12 layouts
+  and random 16-band ones: exact in float64 on integer rows, within one
+  float32 rounding of the exact grams on Gaussian rows. The lean wrapper
+  on the CPU: autograd only for a gradient, layouts validated once and
+  cached, bad layouts and tensors refused on every call.
 """
 
 import functools
@@ -44,7 +52,7 @@ from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
 from neural_speech_decoding_tpu_torch.models import logcov
 from neural_speech_decoding_tpu_torch.models.registry import get_model
 from neural_speech_decoding_tpu_torch.ops import spd
-from neural_speech_decoding_tpu_torch.ops.kernels import iir
+from neural_speech_decoding_tpu_torch.ops.kernels import bandcov, iir
 from neural_speech_decoding_tpu_torch.ops.kernels import kuramoto as ku
 
 REPO = Path(__file__).resolve().parents[1]
@@ -859,3 +867,232 @@ def test_iir_plan_at_the_edge_of_shared_memory(t_len, staged):
             iir._shape(True, 2, 1, t_len, 8, 14, H100[1])
     with pytest.raises(ValueError, match="limit"):
         iir.launch_plan(1, t_len, 8, 33, *H100)
+
+
+# ------------------------------------------------------ band grams (DMMA)
+GRAMS_SOURCE = (REPO / "neural_speech_decoding_tpu_torch" / "csrc" / "bandcov_grams.cu").read_text()
+GRAMS_UNROLL = int(re.search(r"constexpr int kUnroll = (\d+);", GRAMS_SOURCE).group(1))
+LANE = np.arange(32)
+IU, JU = np.triu_indices(C)
+
+
+def _family_offsets(name):
+    _, slices = logcov._band_projector(625, get_model(name).config)
+    return logcov._band_offsets(slices)
+
+
+def _random_offsets(seed, nb=16):
+    """nb bands of 0 to 13 rows (empty, 1-3 rows and widths that are not
+    multiples of 4 among them), starting after row 0 and ending before the
+    last row."""
+    widths = np.random.default_rng(seed).integers(0, 14, nb)
+    widths[:4] = (0, 1, 2, 3)
+    return tuple(int(o) for o in 3 + np.concatenate([[0], np.cumsum(widths)]))
+
+
+GRAM_LAYOUTS = {
+    "logcov5": _family_offsets("logcov5"),
+    "logcov8": _family_offsets("logcov8"),
+    "logcov12": _family_offsets("logcov12"),
+    "random16": _random_offsets(0),
+    "random16b": _random_offsets(1),
+}
+
+
+def _pair_of_lane(lane, i):
+    """The accumulator element lane holds as its i-th double (D[l / 4][2 (l % 4) + i])
+    and the pair it writes, or None below the diagonal."""
+    c, d = lane // 4, 2 * (lane % 4) + i
+    return (c, d, c * (15 - c) // 2 + d) if d >= c else (c, d, None)
+
+
+def _dmma_walk(y, offsets):
+    """The kernel's arithmetic on y [B, R, 8] float32: a warp a (window,
+    band); the band in 4-row chunks, kUnroll chunks loaded before their
+    DMMAs, lanes past the band's end loading 0 and chunks wholly past it
+    skipped; lane l loads Y[r0 + l % 4][l / 4] as both its A (row l / 4,
+    column l % 4 of Y^T) and its B (row l % 4, column l / 4 of Y) element,
+    widened to float64; D += A B in float64. Returns the float64
+    accumulators at the pairs' places [B, nb * 36] and the DMMAs a window."""
+    batch, rows, _ = y.shape
+    nb = len(offsets) - 1
+    flat = y.reshape(batch, -1)
+    out = np.full((batch, nb * 36), np.nan)
+    dmmas = 0
+    for b in range(batch):
+        for k in range(nb):
+            lo, n = offsets[k], offsets[k + 1] - offsets[k]
+            acc = np.zeros((8, 8))
+            for r in range(0, n, 4 * GRAMS_UNROLL):
+                for u in range(GRAMS_UNROLL):
+                    r0 = r + 4 * u
+                    if r0 >= n:  # warp-uniform skip
+                        continue
+                    addr = (lo + r0) * C + (LANE % 4) * C + LANE // 4
+                    assert np.array_equal(np.sort(addr), (lo + r0) * C + np.arange(32))  # 128 contiguous bytes
+                    live = r0 + LANE % 4 < n
+                    v = np.where(live, flat[b, np.where(live, addr, 0)], np.float32(0)).astype(np.float64)
+                    a = np.zeros((8, 4))
+                    bm = np.zeros((4, 8))
+                    a[LANE // 4, LANE % 4] = v
+                    bm[LANE % 4, LANE // 4] = v
+                    assert np.array_equal(a, bm.T)  # one value feeds both operands
+                    acc = acc + a @ bm
+                    dmmas += b == 0
+            for lane in LANE:
+                for i in (0, 1):
+                    c, d, p = _pair_of_lane(lane, i)
+                    if p is not None:
+                        out[b, k * 36 + p] = acc[c, d]
+    return out, dmmas
+
+
+def _exact_grams(y, offsets):
+    """The grams by math.fsum of the exact float64 products: correctly
+    rounded float64."""
+    yd = y.astype(np.float64)
+    out = np.empty((y.shape[0], (len(offsets) - 1) * 36))
+    for b in range(y.shape[0]):
+        for k, (lo, hi) in enumerate(zip(offsets[:-1], offsets[1:])):
+            band = yd[b, lo:hi]
+            prods = band[:, IU] * band[:, JU]  # [n, 36]
+            out[b, k * 36:(k + 1) * 36] = [math.fsum(prods[:, p]) for p in range(36)]
+    return out
+
+
+def test_band_grams_constants_match_the_kernel_source():
+    assert f"constexpr int kMaxBands = {bandcov.MAX_BANDS};" in GRAMS_SOURCE
+    assert f"constexpr int kC = {bandcov.CHANNELS};" in GRAMS_SOURCE
+    assert bandcov.MAX_ROWS == 1 << 26 and "constexpr int kMaxRows = 1 << 26;" in GRAMS_SOURCE
+    assert "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64" in GRAMS_SOURCE
+    assert GRAMS_UNROLL >= 1
+
+
+def test_band_grams_lane_map_writes_every_pair_once():
+    """The m8n8k4 f64 accumulator fragment (lane l: D[l / 4][2 (l % 4) + i])
+    holds all 64 entries once, and the lanes on or above the diagonal
+    write the 36 pairs once each, at the twin's row-major places."""
+    held = {(lane // 4, 2 * (lane % 4) + i) for lane in LANE for i in (0, 1)}
+    assert held == {(c, d) for c in range(8) for d in range(8)}
+    written = [_pair_of_lane(lane, i) for lane in LANE for i in (0, 1)]
+    pairs = sorted(p for _, _, p in written if p is not None)
+    assert pairs == list(range(36))
+    for c, d, p in written:
+        if p is not None:
+            assert (IU[p], JU[p]) == (c, d)
+
+
+@pytest.mark.parametrize("layout", sorted(GRAM_LAYOUTS))
+def test_band_grams_walk_float64_is_exact_on_integers(layout):
+    """On integer rows every sum is exact in any order: the walk's float64
+    accumulators equal the float64 twin's grams, and rounded to float32
+    the float32 twin's, bit for bit."""
+    offsets = GRAM_LAYOUTS[layout]
+    rows = offsets[-1] + 2
+    y = np.random.default_rng(5).integers(-8, 9, (3, rows, C)).astype(np.float32)
+    got, _ = _dmma_walk(y, offsets)
+    yt = torch.from_numpy(y)
+    assert np.array_equal(got, bandcov.band_grams_plain(yt.double(), offsets).numpy())
+    assert np.array_equal(got.astype(np.float32), bandcov.band_grams_plain(yt, offsets).numpy())
+
+
+@pytest.mark.parametrize("layout", sorted(GRAM_LAYOUTS))
+def test_band_grams_walk_float32_within_one_rounding(layout):
+    """Gaussian rows with a railed window (x1e6) and an all-zero one: the
+    walk's float64 sums of exact products, rounded once to float32, lie
+    within one rounding (2^-24 |G|, plus the float64 sums' n 2^-53 of the
+    window's max|G|) of the exact grams, so within 1.2e-7 of each window's
+    max|G| (the card's limit), and within 1e-5 of it from the float32
+    twin (the card's kernel-vs-twin limit)."""
+    offsets = GRAM_LAYOUTS[layout]
+    y = np.random.default_rng(6).standard_normal((4, offsets[-1] + 1, C)).astype(np.float32)
+    y[0, :, 2] *= 1e6
+    y[1] = 0.0
+    acc, dmmas = _dmma_walk(y, offsets)
+    got = acc.astype(np.float32)
+    exact = _exact_grams(y, offsets)
+    scale = np.abs(exact).max(axis=1, keepdims=True)
+    assert scale[1, 0] == 0.0 and not got[1].any()
+    scale[1] = 1.0
+    assert (np.abs(acc - exact) <= 1e-12 * scale).all()
+    assert (np.abs(got - exact) <= 2.0**-24 * np.abs(exact) + 1e-12 * scale).all()
+    assert (np.abs(got - exact) / scale).max() <= 1.2e-7
+    twin = bandcov.band_grams_plain(torch.from_numpy(y), offsets).numpy()
+    assert (np.abs(got - twin) / scale).max() <= 1e-5
+    widths = np.diff(offsets)
+    assert dmmas == sum(-(-w // 4) for w in widths)
+    if layout == "logcov8":
+        assert dmmas == 114
+
+
+def test_band_grams_wrapper_takes_autograd_only_for_a_gradient(monkeypatch):
+    """The lean launch path: under no_grad, or for rows that need no
+    gradient, the forward runs without the autograd Function and gives the
+    twin's values; with a gradient wanted it goes through the Function, and
+    the gradient is the twin's."""
+    offsets = GRAM_LAYOUTS["logcov8"]
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.standard_normal((3, 450, C)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((3, 8 * 36)).astype(np.float32))
+    want = bandcov.band_grams_plain(y, offsets)
+
+    def refuse(*args):
+        raise AssertionError("autograd Function entered")
+
+    with monkeypatch.context() as m:
+        m.setattr(bandcov._BandGrams, "apply", refuse)
+        yg = y.clone().requires_grad_(True)
+        with torch.no_grad():
+            got = bandcov.band_grams(yg, offsets)
+        assert torch.equal(got, want) and got.grad_fn is None
+        assert torch.equal(bandcov.band_grams(y, list(offsets)), want)
+    yg = y.clone().requires_grad_(True)
+    got = bandcov.band_grams(yg, offsets)
+    assert got.grad_fn is not None and torch.equal(got.detach(), want)
+    got.backward(ct)
+    yt = y.clone().requires_grad_(True)
+    bandcov.band_grams_plain(yt, offsets).backward(ct)
+    assert torch.equal(yg.grad, yt.grad)
+
+
+@pytest.mark.parametrize(
+    "rows, offsets",
+    [(450, (0,)), (450, tuple(range(18))), (450, (0, 30, 20, 450)), (450, (0, 30, 451)), (450, (-1, 30)),
+     (bandcov.MAX_ROWS + 1, (0, 30))],
+)
+def test_band_grams_bad_layout_raises_after_a_good_one_is_cached(rows, offsets):
+    """A layout is validated once and cached with its ctypes array; a bad
+    one is never cached, so it raises on every call, before and after a
+    good one was cached."""
+    good = GRAM_LAYOUTS["logcov8"]
+    y = torch.zeros((2, 450, C))
+    bandcov.band_grams(y, good)
+    hits = bandcov._plan.cache_info().hits
+    bandcov.band_grams(y, good)
+    assert bandcov._plan.cache_info().hits == hits + 1
+    plan = bandcov._plan(450, good)
+    assert plan.nb == 8 and plan.offsets == good and list(plan.c_offsets) == list(good)
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            if rows == 450:
+                bandcov.band_grams(y, offsets)
+            else:  # too many rows to allocate here: the layout check alone
+                bandcov._plan(rows, offsets)
+    assert bandcov.band_grams(y, good).shape == (2, 288)
+
+
+def test_band_grams_rejects_bad_tensors_on_every_call():
+    offsets = GRAM_LAYOUTS["logcov8"]
+    y = torch.zeros((2, 450, C))
+    bandcov.band_grams(y, offsets)
+    for _ in range(2):
+        with pytest.raises(TypeError):
+            bandcov.band_grams(y.double(), offsets)
+        with pytest.raises(TypeError):
+            bandcov.band_grams(y.numpy(), offsets)
+        with pytest.raises(ValueError):
+            bandcov.band_grams(y[:, :, :4], offsets)
+        with pytest.raises(ValueError):
+            bandcov.band_grams(y.transpose(0, 1), offsets)
+        with pytest.raises(ValueError, match="device"):
+            bandcov.band_grams(y.to("meta"), offsets)
