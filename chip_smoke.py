@@ -151,6 +151,30 @@ of the checkout. One line per phase, each with its elapsed seconds:
      9g. the flagship's predict_batch(1024) inside device_trace and
          annotate("predict"): the trace file, and the pair-sums, gram and
          feature kernels inside the annotated range
+  10. data parallelism on a one-process mesh (parallel/): meshes over the
+     first min(4, count) cards (dp row i starting on card i), or the one
+     card repeated; each path with
+     the launch counts set to 0 before and read after, held against the
+     unsharded card engine (MESH_PROB_TOL, equal argmax and guard counts)
+     and the CPU engine (LOGIT_TOL); pair sums, band grams and rational
+     features dp times a mesh call:
+     10a. InferenceEngine(mesh=dp2), the LSTM, predict_batch(1024)
+     10b. the flagship manifest with mesh=dp2, timed in turns against the
+          unsharded engine
+     10c. 4 flagship members with shard_members over dp2 x tp2
+     10d. mai_filter_batch_sharded(1024) against mai_filter_batch
+     10e. sharded_eval of one flagship member against the local count
+     10f. train(mesh=dp2): the flagship recipe for MESH_EPOCHS epochs on
+          the golden trials, 2 band-gram and 2 feature launches a step and
+          an evaluation, held against the same run unsharded (losses
+          MESH_TRAIN_RTOL, val accuracies equal, the trained members'
+          logits MESH_TRAIN_LOGIT_TOL), the member served card against
+          CPU; the LSTM
+          for one step of 32 on 42 raw trials (both splits filtered
+          dp-sharded)
+     10g. the sweep tool, its logcov grid cut to the flagship combination
+          (2 folds, 30 epochs, 90 synthetic trials), with --train-winner,
+          the winner served card against CPU
   3d. the device-only times (torch.profiler's kernel events over 20
      back-to-back calls) of phase 3's timed calls: the band grams and
      their yardstick at B = 1, 1024 and 16384, every other kernel at
@@ -166,6 +190,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import signal
 import subprocess
 import sys
@@ -1888,6 +1913,293 @@ def check_analysis_path(dev, smi: str, flagship) -> list:
     return runs
 
 
+# 10: data parallelism on a one-process mesh
+MESH_PROB_TOL = 1e-5  # a mesh engine against the unsharded card engine
+MESH_EPOCHS = 10  # the flagship recipe over dp2, cut from its 120 epochs
+MESH_TRAIN_RTOL = 1e-4  # mesh training's losses against the same run unsharded
+MESH_TRAIN_LOGIT_TOL = 1e-5  # the two runs' trained members, |delta logit|
+SWEEP_PER_CLASS = 30  # the sweep's synthetic trials (as phase 9c's)
+# the sweep cut to one combination: the logcov grid's flagship recipe, 2
+# folds and 30 epochs (the grid runs 3 combinations at 5 folds, 120 epochs)
+SWEEP_GRID = {"model": ["logcov8"], "model_kw": [FLAGSHIP_KW], "augment": [0.5]}
+
+
+def mesh_devices(dp: int, tp: int = 1) -> list:
+    """The places of a dp x tp mesh, row by row, over the first
+    min(4, count) cards: place (i, j) on card (i + j * dp) % cards, so that
+    dp row i starts on card i when at least dp cards are visible; with one
+    card, that card repeated."""
+    cards = min(4, torch.cuda.device_count())
+    return [f"cuda:{(i + j * dp) % cards}" for i in range(dp) for j in range(tp)]
+
+
+def _mesh_launches(label: str, launches: dict, want: dict) -> None:
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, want {n}: {launches}")
+
+
+def check_mesh_path(dev, smi: str, windows: np.ndarray, lstm_probs: np.ndarray, flagship, fprobs: np.ndarray) -> list:
+    """Phase 10: every mesh path at full width, counts set to 0 before each
+    and read after; each held against the unsharded card engine (<= 1e-5
+    |delta prob|, equal argmax and guard counts) and the CPU engine (<= 1e-4
+    |delta logit|); pair sums, band grams and rational features dp times a
+    mesh call."""
+    from neural_speech_decoding_tpu_torch.config import FilterConfig
+    from neural_speech_decoding_tpu_torch.io.dataset import TrialDataset, write_synthetic_trials
+    from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
+    from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
+    from neural_speech_decoding_tpu_torch.models.registry import get_model
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch, mai_filter_batch_sharded
+    from neural_speech_decoding_tpu_torch.parallel import make_mesh
+    from neural_speech_decoding_tpu_torch.parallel.collective import sharded_eval
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+    from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
+    from neural_speech_decoding_tpu_torch.tools import sweep
+    from neural_speech_decoding_tpu_torch.train.loop import TrainConfig, train
+
+    dp2 = make_mesh(mesh_devices(2), tp=1)
+    dp2tp2 = make_mesh(mesh_devices(2, 2), tp=2)
+    others = sorted(t.name for t in threading.enumerate() if t is not threading.current_thread())
+    phase(f"10 meshes: dp2 {dp2}; dp2 x tp2 {dp2tp2} ({torch.cuda.device_count()} cards visible; {smi}); "
+          f"{len(others)} other Python threads alive: {others}")
+    fast = FilterConfig(precision="fast")
+    w16 = windows[:16].copy()
+    w16[5] = 0.0
+    runs = []
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # 10a. the LSTM engine over dp2
+    lstm = InferenceEngine(model_path=str(CHECKPOINT), mesh=dp2)
+    kernels.reset_launches()
+    probs, cold_s = timed(lambda: lstm.predict_batch(windows))
+    launches = kernels.launches()
+    runs.append(launches)
+    _mesh_launches("10a LSTM mesh", launches, {"kuramoto_pair_sums": 2})
+    dp = float(np.abs(probs - lstm_probs).max())
+    if not (dp <= MESH_PROB_TOL and np.array_equal(probs.argmax(1), lstm_probs.argmax(1))):
+        raise AssertionError(f"10a LSTM mesh vs unsharded card engine: |dprob| {dp}")
+    unsharded = InferenceEngine(model_path=str(CHECKPOINT))
+    turns = [timed(lambda e=e: e.predict_batch(windows))[1] for e in (unsharded, lstm, lstm, unsharded)]
+    dl = float(np.abs(lstm.logits_batch(w16)
+                      - InferenceEngine(model_path=str(CHECKPOINT), device="cpu").logits_batch(w16)).max())
+    if not dl <= LOGIT_TOL:
+        raise AssertionError(f"10a LSTM mesh vs cpu: |dlogit| {dl}")
+    b = len(windows)
+    phase(f"10a InferenceEngine(mesh=dp2) LSTM predict_batch({b}): {cold_s:.3f} s first call; warm, in turns "
+          f"(unsharded, mesh, mesh, unsharded; host clock) {', '.join(f'{t:.3f}' for t in turns)} s; launches "
+          f"{launches}; vs unsharded card |dprob| {dp:.3e} (tol {MESH_PROB_TOL}), argmax equal; vs cpu, 16 windows, "
+          f"|dlogit| {dl:.3e} (tol {LOGIT_TOL})")
+    del lstm, unsharded
+
+    # 10b. the flagship over dp2
+    before = flagship.stats["guard_flagged"]
+    flagship.predict_batch(windows)
+    flagged = flagship.stats["guard_flagged"] - before
+    mesh_flagship = EnsembleEngine.from_manifest(str(FLAGSHIP), mesh=dp2)
+    kernels.reset_launches()
+    mprobs, cold_s = timed(lambda: mesh_flagship.predict_batch(windows))
+    launches = kernels.launches()
+    runs.append(launches)
+    _mesh_launches("10b flagship mesh", launches, dict.fromkeys(PATH_KERNELS, 2))
+    dp = float(np.abs(mprobs - fprobs).max())
+    m_flagged = mesh_flagship.stats["guard_flagged"]
+    if not (dp <= MESH_PROB_TOL and np.array_equal(mprobs.argmax(1), fprobs.argmax(1)) and m_flagged == flagged):
+        raise AssertionError(f"10b flagship mesh vs unsharded: |dprob| {dp}, guard {m_flagged} vs {flagged}")
+    cpu_flagship = EnsembleEngine.from_manifest(str(FLAGSHIP), device="cpu")
+    dl = float(np.abs(mesh_flagship.logits_batch(w16) - cpu_flagship.logits_batch(w16)).max())
+    if not dl <= LOGIT_TOL:
+        raise AssertionError(f"10b flagship mesh vs cpu: |dlogit| {dl}")
+    turns = [cuda_ms(lambda: flagship.predict_batch(windows), 5), cuda_ms(lambda: mesh_flagship.predict_batch(windows), 5),
+             cuda_ms(lambda: mesh_flagship.predict_batch(windows), 5), cuda_ms(lambda: flagship.predict_batch(windows), 5)]
+    phase(f"10b flagship EnsembleEngine(mesh=dp2) predict_batch({b}): {cold_s:.3f} s first call; warm, in turns "
+          f"(unsharded, mesh, mesh, unsharded) {turns[0]:.3f}, {turns[1]:.3f}, {turns[2]:.3f}, {turns[3]:.3f} ms "
+          f"({smi}); launches {launches}; vs unsharded card |dprob| {dp:.3e}, guard_flagged {m_flagged} = "
+          f"{flagged}; vs cpu, 16 windows, |dlogit| {dl:.3e} over 5 members")
+    del mesh_flagship
+
+    # 10c. shard_members: 4 flagship members over dp2 x tp2
+    manifest = json.loads(FLAGSHIP.read_text())
+    paths = [str(FLAGSHIP.parent / Path(p).name) for p in manifest["members"]][:4]
+    kw = dict(model="logcov8", model_kw=manifest["config"]["model_kw"])
+    base4 = EnsembleEngine(paths, **kw)
+    want4 = base4.predict_batch(windows)
+    sharded = EnsembleEngine(paths, mesh=dp2tp2, shard_members=True, **kw)
+    kernels.reset_launches()
+    sprobs, cold_s = timed(lambda: sharded.predict_batch(windows))
+    launches = kernels.launches()
+    runs.append(launches)
+    _mesh_launches("10c shard_members", launches, dict.fromkeys(PATH_KERNELS, 2))
+    dp = float(np.abs(sprobs - want4).max())
+    if not (dp <= MESH_PROB_TOL and np.array_equal(sprobs.argmax(1), want4.argmax(1))
+            and sharded.stats == base4.stats):
+        raise AssertionError(f"10c shard_members vs unsharded: |dprob| {dp}, stats {sharded.stats} vs {base4.stats}")
+    dl = float(np.abs(sharded.logits_batch(w16) - EnsembleEngine(paths, device="cpu", **kw).logits_batch(w16)).max())
+    if not dl <= LOGIT_TOL:
+        raise AssertionError(f"10c shard_members vs cpu: |dlogit| {dl}")
+    s_ms = cuda_ms(lambda: sharded.predict_batch(windows), 5)
+    b_ms = cuda_ms(lambda: base4.predict_batch(windows), 5)
+    phase(f"10c EnsembleEngine(4 members, mesh=dp2 x tp2, shard_members) predict_batch({b}): {cold_s:.3f} s first "
+          f"call, warm {s_ms:.3f} ms (unsharded 4 members {b_ms:.3f} ms); launches {launches}; vs unsharded |dprob| "
+          f"{dp:.3e}, stats {sharded.stats}; vs cpu, 16 windows, |dlogit| {dl:.3e} over 4 members")
+    del sharded, base4
+
+    # 10d. mai_filter_batch_sharded
+    xw = torch.from_numpy(windows).to(dev)
+    kernels.reset_launches()
+    filtered, f_s = timed(lambda: mai_filter_batch_sharded(xw, fast, mesh=dp2))
+    launches = kernels.launches()
+    runs.append(launches)
+    _mesh_launches("10d sharded filter", launches, {"kuramoto_pair_sums": 2})
+    ref = mai_filter_batch(xw, fast, device=dev)
+    ferr = float(((filtered - ref).abs().amax(dim=(1, 2)) / ref.abs().amax(dim=(1, 2)).clamp(min=1e-30)).max())
+    if not ferr <= 1e-6:
+        raise AssertionError(f"10d sharded filter vs unsharded: {ferr} of each window's scale")
+    fs_ms = cuda_ms(lambda: mai_filter_batch_sharded(xw, fast, mesh=dp2), 5)
+    fu_ms = cuda_ms(lambda: mai_filter_batch(xw, fast, device=dev), 5)
+    phase(f"10d mai_filter_batch_sharded({b}, dp2): {f_s:.3f} s first call, warm {fs_ms:.3f} ms (unsharded "
+          f"{fu_ms:.3f} ms); launches {launches}; vs unsharded {ferr:.3e} of each window's scale")
+
+    # 10e. sharded_eval with one flagship member (filter, features, head)
+    spec = get_model("logcov8", **FLAGSHIP_KW)
+    member = load_params_npz(FLAGSHIP_MEMBER)
+
+    def apply_fn(p, w):
+        return spec.apply(p, mai_filter_batch(w, fast, device=w.device))
+
+    n = len(windows) - 1  # odd: padded with one window labelled -1
+    labels = np.arange(n) % 3
+    kernels.reset_launches()
+    (acc, total), e_s = timed(lambda: sharded_eval(dp2, apply_fn, member, windows[:n], labels))
+    launches = kernels.launches()
+    runs.append(launches)
+    _mesh_launches("10e sharded_eval", launches, dict.fromkeys(PATH_KERNELS, 2))
+    with torch.no_grad():
+        local = apply_fn(params_from_jax(member, dev), xw[:n]).argmax(1).cpu().numpy()
+    want_acc = float((local == labels).sum()) / n
+    if not (total == n and acc == want_acc):
+        raise AssertionError(f"10e sharded_eval: ({acc}, {total}) vs local ({want_acc}, {n})")
+    phase(f"10e sharded_eval(dp2, one flagship member, {n} windows padded to {n + 1}): {e_s:.3f} s; accuracy "
+          f"{acc:.4f} on {total} = local; launches {launches}")
+
+    # 10f. training over dp2: the flagship recipe against the same run
+    # unsharded (deterministic at dropout 0), and one LSTM step
+    from neural_speech_decoding_tpu_torch.train import loop
+
+    ds = golden_three_class()
+    cfg = TrainConfig(learning_rate=1e-3, label_smoothing=0.1, augment_prob=0.5, epochs=MESH_EPOCHS)
+    per_call = []  # (kind, (band-gram, feature) launches) of each sharded step and evaluation
+
+    def counted(make, kind):
+        def factory(*a, **k):
+            fn = make(*a, **k)
+
+            def call(*args):
+                before = kernels.launches()
+                out = fn(*args)
+                after = kernels.launches()
+                per_call.append((kind, (after["bandcov_grams"] - before["bandcov_grams"],
+                                        after["logcov_feats"] - before["logcov_feats"])))
+                return out
+
+            return call
+
+        return factory
+
+    real = loop.make_sharded_train_step, loop.make_sharded_eval_fn
+    loop.make_sharded_train_step = counted(real[0], "step")
+    loop.make_sharded_eval_fn = counted(real[1], "evaluation")
+    try:
+        kernels.reset_launches()
+        (params, hist), t_s = timed(lambda: train(ds, model="logcov8", model_kw=FLAGSHIP_KW, train_cfg=cfg,
+                                                  preprocessed=ds.windows, mesh=dp2, verbose=False))
+        launches = kernels.launches()
+    finally:
+        loop.make_sharded_train_step, loop.make_sharded_eval_fn = real
+    runs.append(launches)
+    steps = sum(kind == "step" for kind, _ in per_call)
+    evals = sum(kind == "evaluation" for kind, _ in per_call)
+    wrong = [c for c in per_call if c[1] != (2, 2)]
+    if wrong or steps == 0 or evals != len(hist):
+        raise AssertionError(f"10f mesh training: want 2 band-gram and 2 feature launches a step and an "
+                             f"evaluation; {steps} steps, {evals} evaluations, {len(hist)} epochs; off: {wrong[:4]}")
+    first, last = hist[0]["train_loss"], hist[-1]["train_loss"]
+    if not (np.isfinite(last) and last < first):
+        raise AssertionError(f"10f mesh training: train loss {first} -> {last} did not fall")
+    (uparams, uhist), u_s = timed(lambda: train(ds, model="logcov8", model_kw=FLAGSHIP_KW, train_cfg=cfg,
+                                                preprocessed=ds.windows, verbose=False))
+    dh = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(hist, uhist) for k in ("train_loss", "val_loss"))
+    same_acc = [h["val_accuracy"] for h in hist] == [h["val_accuracy"] for h in uhist]
+    gpu = InferenceEngine(params=params, model="logcov8", model_kw=FLAGSHIP_KW).logits_batch(w16)
+    dt = float(np.abs(gpu - InferenceEngine(params=uparams, model="logcov8", model_kw=FLAGSHIP_KW)
+                      .logits_batch(w16)).max())
+    if not (len(hist) == len(uhist) and dh <= MESH_TRAIN_RTOL and same_acc and dt <= MESH_TRAIN_LOGIT_TOL):
+        raise AssertionError(f"10f mesh training vs unsharded: losses rel {dh} (tol {MESH_TRAIN_RTOL}), val "
+                             f"accuracies equal {same_acc}, trained members |dlogit| {dt} "
+                             f"(tol {MESH_TRAIN_LOGIT_TOL})")
+    cpu = InferenceEngine(params=params, model="logcov8", model_kw=FLAGSHIP_KW, device="cpu").logits_batch(w16)
+    dl = float(np.abs(gpu - cpu).max())
+    if not dl <= LOGIT_TOL:
+        raise AssertionError(f"10f mesh-trained member card vs cpu: |dlogit| {dl}")
+    phase(f"10f train(mesh=dp2) flagship recipe, {len(ds)} golden trials, {len(hist)} epochs (cut from "
+          f"{FLAGSHIP_EPOCHS}): {t_s:.3f} s (unsharded, head-space path, {u_s:.3f} s); {steps} steps and {evals} "
+          f"evaluations, each 2 band-gram and 2 feature launches; launches {launches}; train loss {first:.4f} -> "
+          f"{last:.4f}; val accuracy {hist[-1]['val_accuracy']:.3f}; vs the unsharded card run: losses rel "
+          f"{dh:.3e} (tol {MESH_TRAIN_RTOL}), val accuracies equal, trained members 16 windows |dlogit| {dt:.3e} "
+          f"(tol {MESH_TRAIN_LOGIT_TOL}); served card vs cpu |dlogit| {dl:.3e}")
+    raw = synthetic_windows(42, seed=7) * 20.0
+    lstm_ds = TrialDataset(raw, np.arange(42, dtype=np.int32) % 3, ("food", "water", "backgroundnoise"),
+                           tuple(f"{('food', 'water', 'backgroundnoise')[i % 3]}_{i:04d}.csv" for i in range(42)))
+    kernels.reset_launches()
+    (lparams, lhist), l_s = timed(lambda: train(lstm_ds, model="lstm", train_cfg=TrainConfig(epochs=1, batch_size=32),
+                                                filter_cfg=fast, mesh=dp2, verbose=False))
+    launches = kernels.launches()
+    runs.append(launches)
+    _mesh_launches("10f LSTM mesh training (train and val splits filtered)", launches, {"kuramoto_pair_sums": 4})
+    if not np.isfinite(lhist[0]["train_loss"]):
+        raise AssertionError(f"10f LSTM mesh step: loss {lhist[0]['train_loss']}")
+    phase(f"10f train(mesh=dp2) LSTM (hidden 48, 2 layers), 42 raw trials, 1 epoch = one step of 32 (two shards of "
+          f"16) and a sharded evaluation: {l_s:.3f} s; launches {launches}; train loss {lhist[0]['train_loss']:.4f}")
+
+    # 10g. the sweep: one combination, then --train-winner
+    with tempfile.TemporaryDirectory() as d:
+        trials = write_synthetic_trials(Path(d) / "trials", SWEEP_PER_CLASS, seed=0)
+        out = Path(d) / "winner.npz"
+        old_env = os.environ.get("NSD_DATA_DIR")
+        os.environ["NSD_DATA_DIR"] = str(trials)
+        sweep.GRIDS["chip_smoke"] = SWEEP_GRID
+        try:
+            kernels.reset_launches()
+            results, sw_s = timed(lambda: sweep.main(["--grid", "chip_smoke", "--folds", "2", "--epochs", "30",
+                                                      "--train-winner", str(out)]))
+            launches = kernels.launches()
+        finally:
+            del sweep.GRIDS["chip_smoke"]
+            if old_env is None:
+                os.environ.pop("NSD_DATA_DIR", None)
+            else:
+                os.environ["NSD_DATA_DIR"] = old_env
+        runs.append(launches)
+        if min(launches[n] for n in PATH_KERNELS) < 1:
+            raise AssertionError(f"10g sweep left a kernel of its path unlaunched: {launches}")
+        nested = results[0]["by_protocol"]["nested"]["mean"]
+        gpu = InferenceEngine(str(out), model="logcov8", model_kw=FLAGSHIP_KW).logits_batch(w16)
+        cpu = InferenceEngine(str(out), model="logcov8", model_kw=FLAGSHIP_KW, device="cpu").logits_batch(w16)
+    dl = float(np.abs(gpu - cpu).max())
+    if not (np.isfinite(nested) and dl <= LOGIT_TOL):
+        raise AssertionError(f"10g sweep: nested {nested}; winner card vs cpu |dlogit| {dl}")
+    phase(f"10g sweep --train-winner ({3 * SWEEP_PER_CLASS} synthetic trials; the logcov grid cut to the flagship "
+          f"combination, 2 folds, 30 epochs): {sw_s:.3f} s; nested {nested:.3f}; launches {launches}; winner served "
+          f"card vs cpu, 16 windows, |dlogit| {dl:.3e}")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2353,6 +2665,9 @@ def main() -> int:
     # 9. the analysis and evaluation path: analysis, tools, tracing
     analysis_launches = check_analysis_path(dev, smi, flagship)
 
+    # 10. data parallelism on a one-process mesh
+    mesh_launches = check_mesh_path(dev, smi, windows, probs, flagship, fprobs)
+
     # 3d. the device-only times of phase 3's calls, measured here and not
     # in phase 3: with these torch.profiler sessions in phase 3, 9g's
     # trace was seen to hold no pair-sums kernel event in its range (H100,
@@ -2369,7 +2684,7 @@ def main() -> int:
                                          flagship_trial_launches, cheb_launches, cheb_trial_launches,
                                          unw_launches, iir_launches, mix_launches, rec_launches,
                                          tcn_trial_launches, train_launches, cli_launches]
-                   + family_launches + live_launches + analysis_launches)
+                   + family_launches + live_launches + analysis_launches + mesh_launches)
 
     logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
                               iir_cascade=iir_times[TIMED[0]])

@@ -17,12 +17,15 @@ import torch
 
 
 def params_from_jax(tree: Any, device="cpu") -> Any:
-    """Nested dict/list of array-likes (numpy or JAX arrays) -> the same
-    structure of contiguous float32 tensors on `device`."""
+    """Nested dict/list of array-likes (numpy or JAX arrays, or tensors on
+    any device) -> the same structure of contiguous float32 tensors on
+    `device`, always new copies."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, device) for v in tree]
+    if isinstance(tree, torch.Tensor):  # a copy, as for array leaves
+        return tree.detach().to(device=device, dtype=torch.float32, copy=True).contiguous()
     # np.array, not np.ascontiguousarray: the latter promotes 0-d leaves
     # (the attention bias) to 1-d
     arr = np.array(np.asarray(tree), dtype=np.float32, order="C")

@@ -13,7 +13,8 @@ x [T, C]:
 
 The public surface beside the filter: `kuramoto_operator` (from phases),
 `kuramoto_operator_from_analytic`, and the sklearn-style
-`KuramotoSpatialFilter` / `kuramoto_spatial_filter` on [C, T] numpy data.
+`KuramotoSpatialFilter` / `kuramoto_spatial_filter` on [C, T] numpy data,
+and `mai_filter_batch_sharded`, the batched filter over a device mesh.
 
 Every function takes leading batch dimensions: [..., T, C]. The batched
 fast path gets G from ops/kernels/kuramoto.kuramoto_pair_sums, which is
@@ -237,3 +238,23 @@ def mai_filter_batch(
     if config.precision == "fast":
         return _mai_filter_batch_fused(x, config)
     return mai_filter(x, config)
+
+
+def mai_filter_batch_sharded(
+    windows_btc,
+    config: Optional[FilterConfig] = None,
+    *,
+    mesh,
+    axis: str = "dp",
+) -> torch.Tensor:
+    """Batched filter over a device mesh (JAX ops/kuramoto.py:369-396): the
+    batch splits over `axis`, each shard is filtered on its own device (the
+    pair-sums kernel once a shard on the card), and the shards are
+    concatenated on the mesh's primary device. The batch must divide by
+    the axis' size."""
+    from neural_speech_decoding_tpu_torch.parallel.sharding import batch_sharding, gather
+
+    config = config or FilterConfig()
+    shards = batch_sharding(mesh, windows_btc, axis)
+    tasks = [(w.device, lambda w: mai_filter_batch(w, config, device=w.device), (w,)) for w in shards]
+    return gather(mesh, mesh.run(tasks))

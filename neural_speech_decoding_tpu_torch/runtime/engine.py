@@ -17,6 +17,13 @@ counted), predict / predict_batch / predict_batch_async / logits_batch and
 warmup. `InferenceEngine.decode_recording` frames a continuous recording
 on the device and decodes it in chunks. The engines run on CUDA unless the
 caller passes `device="cpu"`; without CUDA they raise.
+
+With `mesh=` (parallel/mesh.Mesh) the parameters are replicated on the
+mesh's devices, the bucket is rounded up to a multiple of dp (JAX
+engine.py:92-97), and each dp shard runs the whole pipeline (filter,
+decoder, softmax, guard flags) on the first device of its row; the shards'
+outputs are concatenated on the mesh's primary device, which is the
+engine's `device`.
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 from neural_speech_decoding_tpu_torch.models.registry import get_model
 from neural_speech_decoding_tpu_torch.ops.epoching import frame_signal, frame_times, num_frames
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
+from neural_speech_decoding_tpu_torch.parallel.mesh import primary_device
+from neural_speech_decoding_tpu_torch.parallel.sharding import batch_sharding, gather
 from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, disable_tf32, resolve_device
 
 
@@ -54,10 +63,17 @@ def _serving_config(spec, model: str) -> PipelineConfig:
     )
 
 
+def _engine_device(mesh, device: DeviceLike) -> torch.device:
+    """The engine's device: the mesh's primary device under a mesh, else
+    `device` resolved."""
+    return resolve_device(device) if mesh is None else primary_device(mesh, device)
+
+
 class _ServingBase:
-    """Shared serving surface. Subclasses set `device`, `config` and
-    `class_names`, call `_init_serving()`, and implement `_forward`
-    (windows tensor -> (logits, flags or None)); an ensemble also
+    """Shared serving surface. Subclasses set `device`, `mesh` (None or a
+    parallel/mesh.Mesh), `config` and `class_names`, call
+    `_init_serving()`, and implement `_forward` (windows tensor on a
+    device, that device -> (logits, flags or None)); an ensemble also
     overrides `_probs`."""
 
     #: parked guard-flag vectors are folded (one host read each) when the
@@ -69,6 +85,7 @@ class _ServingBase:
         self._stats = {"windows": 0, "guard_flagged": 0}
         self._parked: list = []  # (flags device tensor, windows) of async calls
         self._stats_lock = threading.Lock()
+        self._pad_multiple = 1 if self.mesh is None else self.mesh.shape[self.mesh.axis_names[0]]
 
     @property
     def stats(self) -> Dict[str, int]:
@@ -97,11 +114,39 @@ class _ServingBase:
         if overflow:
             _ = self.stats
 
-    def _forward(self, windows_btc: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    def _forward(self, windows_btc: torch.Tensor, device: torch.device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         raise NotImplementedError
 
     def _probs(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.softmax(logits, dim=-1)
+
+    def _bucket_padded(self, b: int) -> int:
+        """The power-of-two bucket, rounded up to a multiple of the mesh's
+        dp so that the shards divide evenly."""
+        m = self._pad_multiple
+        return -(-_bucket(b) // m) * m
+
+    def _shard(self, x: torch.Tensor, device: torch.device, softmax: bool):
+        logits, flags = self._forward(x, device)
+        return (self._probs(logits) if softmax else logits), flags
+
+    def _run(self, x: torch.Tensor, softmax: bool):
+        """Windows on the engine's device (under a mesh, a multiple of dp)
+        -> (probabilities or logits, flags or None) on that device."""
+        if self.mesh is None:
+            return self._shard(x, self.device, softmax)
+        shards = batch_sharding(self.mesh, x)
+        outs = self.mesh.run([(w.device, self._shard, (w, w.device, softmax)) for w in shards])
+        out = gather(self.mesh, [o for o, _ in outs], dim=-2)
+        flags = None if outs[0][1] is None else gather(self.mesh, [f for _, f in outs])
+        return out, flags
+
+    def _padded(self, x: torch.Tensor, bb: int) -> torch.Tensor:
+        """x with zero windows appended up to bb (sliced away later)."""
+        b = x.shape[0]
+        if bb == b:
+            return x
+        return torch.cat([x, x.new_zeros((bb - b,) + tuple(x.shape[1:]))])
 
     @torch.no_grad()
     def _decode(self, windows_btc, softmax: bool) -> np.ndarray:
@@ -116,11 +161,8 @@ class _ServingBase:
         b = x.shape[0]
         if b == 0:
             return np.zeros((0, len(self.class_names)), np.float32)
-        bb = _bucket(b)
-        if bb != b:  # zero windows, sliced away below
-            x = torch.cat([x, x.new_zeros((bb - b,) + tuple(x.shape[1:]))])
-        logits, flags = self._forward(x.to(self.device).contiguous())
-        out = self._probs(logits) if softmax else logits
+        x = self._padded(x, self._bucket_padded(b))
+        out, flags = self._run(x.to(self.device).contiguous(), softmax)
         out = out[..., :b, :].cpu().numpy()
         flagged = 0 if flags is None else int(flags[:b].sum().item())
         with self._stats_lock:
@@ -141,20 +183,22 @@ class _ServingBase:
     def predict_batch_async(self, windows_btc) -> torch.Tensor:
         """[B, T, C] windows on the engine's device -> probabilities
         [B, classes] as a device tensor, without waiting for the card (no
-        batch bucket, no host read). A family without a guard has its
-        windows counted now; a guard's flags are parked on the device and
-        folded into `stats`, with their windows, when it is next read."""
+        batch bucket, no host read; under a mesh, zero windows up to a
+        multiple of dp). A family without a guard has its windows counted
+        now; a guard's flags are parked on the device and folded into
+        `stats`, with their windows, when it is next read."""
         x = torch.as_tensor(windows_btc, dtype=torch.float32, device=self.device)
         if x.ndim != 3:
             raise ValueError(f"expected windows [B, T, C], got shape {tuple(x.shape)}")
-        logits, flags = self._forward(x.contiguous())
         b = int(x.shape[0])
+        m = self._pad_multiple
+        probs, flags = self._run(self._padded(x, -(-b // m) * m).contiguous(), softmax=True)
         if flags is None:
             with self._stats_lock:
                 self._stats["windows"] += b
         else:
-            self._park_flags(flags, b)
-        return self._probs(logits)
+            self._park_flags(flags[:b], b)
+        return probs[:b]
 
     def predict(self, window_tc: np.ndarray) -> Tuple[np.ndarray, str]:
         """One [T, C] window -> (probs [classes] float32, label) — the
@@ -169,9 +213,10 @@ class _ServingBase:
         counts nothing."""
         t, c = self.config.window_samples, self.config.num_channels
         for b in batch_sizes:
-            self._forward(torch.zeros((_bucket(b), t, c), dtype=torch.float32, device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self._run(torch.zeros((self._bucket_padded(b), t, c), dtype=torch.float32, device=self.device), True)
+        for d in (self.mesh.distinct if self.mesh is not None else (self.device,)):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
 
 def load_params(path: str, model: str):
@@ -204,21 +249,22 @@ class InferenceEngine(_ServingBase):
         instead. `model` is a family of models/registry.py; `model_kw`
         overrides its config (e.g. whiten=True for a whitened logcov
         checkpoint). `turbo` runs the LSTM's recurrence in bfloat16, as the
-        JAX engine's does (no effect on other families). `donate` and
-        `mesh` are the JAX engine's keywords; only their defaults are
-        served."""
-        if donate or mesh is not None:
-            raise NotImplementedError(
-                "donate and mesh are not ported yet (ROADMAP.md: mesh serving, donate)"
-            )
+        JAX engine's does (no effect on other families). `donate` is taken
+        as the JAX engine takes it, and has no effect there either.
+        `mesh`: a parallel/mesh.Mesh; the batch then splits over its 'dp'
+        axis, with the parameters replicated on its devices, and the
+        engine's device is the mesh's primary one."""
         self._spec = get_model(model, **(model_kw or {}))
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _engine_device(mesh, device)
         disable_tf32()
         if params is None:
             if model_path is None:
                 raise ValueError("need model_path or params")
             params = load_params(model_path, model)
-        self.params = params_from_jax(params, self.device)
+        devices = (self.device,) if mesh is None else mesh.distinct
+        self._params_on = {d: params_from_jax(params, d) for d in devices}
+        self.params = self._params_on[self.device]
         self._is_lstm = model.startswith("lstm")
 
         config = config or _serving_config(self._spec, model)
@@ -243,14 +289,15 @@ class InferenceEngine(_ServingBase):
         self.class_names = tuple(class_names or config.class_names)
         self._init_serving()
 
-    def _forward(self, windows_btc: torch.Tensor):
-        filtered = mai_filter_batch(windows_btc, self.config.filter, device=self.device)
+    def _forward(self, windows_btc: torch.Tensor, device: torch.device):
+        params = self._params_on[device]
+        filtered = mai_filter_batch(windows_btc, self.config.filter, device=device)
         if self._is_lstm:
             # honours a custom DecoderConfig coming through PipelineConfig
-            return decoder_logits(self.params, filtered, self.config.decoder), None
+            return decoder_logits(params, filtered, self.config.decoder), None
         if self._spec.apply_ex is None:
-            return self._spec.apply(self.params, filtered), None
-        logits, aux = self._spec.apply_ex(self.params, filtered)
+            return self._spec.apply(params, filtered), None
+        logits, aux = self._spec.apply_ex(params, filtered)
         return logits, aux["domain_flags"]
 
     def decode_recording(self, signal_tc, hop_seconds: float = 1.0, max_batch: int = 4096):

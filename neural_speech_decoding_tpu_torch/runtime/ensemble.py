@@ -22,12 +22,23 @@ parallel to the members, with per-family overrides "fam:key" in
 `model_kw`) keeps its groups in first-seen order. The softmaxes of all
 members of all groups are combined at once, by mean (the deployed
 default) or by the renormalised per-class median; guard flags are OR'd
-over the groups. The JAX engine's mesh, member sharding and bf16 turbo
-options are still to port (ROADMAP.md).
+over the groups. `turbo` (one family) runs LSTM members' recurrence in
+bfloat16, as InferenceEngine's does.
+
+With `mesh=` the members split into member shards: one shard of all
+members (replicated, as the JAX engine's whole-pipeline shard_map is,
+ensemble.py:278-293), or with `shard_members=True` (one family) the mesh's
+'tp' shards of them in order. Member shard j of dp row i sits on device
+grid[i][j]. Each dp shard is filtered on its row's first device (and,
+with shared features, featurized there once and the features copied to
+the row's devices), each member shard decodes it on its device, and the
+member logits are gathered on the primary device in member order before
+they are combined.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Optional, Sequence
@@ -40,12 +51,14 @@ from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
 from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
 from neural_speech_decoding_tpu_torch.models.registry import family_model_kw, get_model
 from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
+from neural_speech_decoding_tpu_torch.parallel.sharding import batch_sharding
 from neural_speech_decoding_tpu_torch.runtime.engine import (
+    _engine_device,
     _serving_config,
     _ServingBase,
     load_params,
 )
-from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, disable_tf32, resolve_device
+from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, disable_tf32
 
 
 def _structure(tree):
@@ -115,25 +128,32 @@ def _identical_whiteners(params_list) -> bool:
     return False
 
 
-class _Group:
-    """The members of one family: their parameters on the device, one by
-    one and stacked, and how they decode filtered windows."""
+def _shares_features(spec, params_list, share_features: str) -> bool:
+    """Whether a group's members can share one feature extraction."""
+    return (
+        share_features == "auto"
+        and not spec.name.startswith("lstm")
+        and spec.apply_ex is not None
+        and spec.featurize_ex is not None
+        and spec.head_apply is not None
+        and len(params_list) > 1
+        and _identical_whiteners(params_list)
+    )
 
-    def __init__(self, spec, params_list, device, share_features: str, decoder_config):
+
+class _Group:
+    """The members of one family (or one member shard of it): their
+    parameters on a device, one by one and stacked, and how they decode
+    filtered windows."""
+
+    def __init__(self, spec, params_list, device, shared: bool, decoder_config):
         self.spec = spec
         self.is_lstm = spec.name.startswith("lstm")
         self.decoder_config = decoder_config  # the LSTM's, else unused
         self.stacked = params_from_jax(stack_params(params_list), device)
         self.members = [params_from_jax(p, device) for p in params_list]
         self.has_aux = not self.is_lstm and spec.apply_ex is not None
-        self.shared = (
-            share_features == "auto"
-            and self.has_aux
-            and spec.featurize_ex is not None
-            and spec.head_apply is not None
-            and len(params_list) > 1
-            and _identical_whiteners(params_list)
-        )
+        self.shared = shared
 
     def featurize(self, filtered: torch.Tensor):
         return self.spec.featurize_ex(self.members[0], filtered)
@@ -186,42 +206,71 @@ class EnsembleEngine(_ServingBase):
         names each member's family instead. `share_features="auto"`
         extracts logcov features once per group whose whiteners are
         identical; "never" forces the per-member pipeline. `combine` is
-        "mean" or "median"."""
+        "mean" or "median". `turbo` (one family) runs LSTM members'
+        recurrence in bfloat16. `mesh`: a parallel/mesh.Mesh over which the
+        batch splits ('dp'), and with `shard_members` (one family) the
+        members too ('tp', which must divide the number of members)."""
         if combine not in ("mean", "median"):
             raise ValueError(f"unknown combine {combine!r}")
         fam_names = [f.strip() for f in model.split("+") if f.strip()]
         mixed = len(fam_names) > 1 or families is not None
         if mixed and (turbo or shard_members):
             raise ValueError("turbo/shard_members are not supported for mixed-family ensembles")
-        if turbo or mesh is not None or shard_members:
-            raise NotImplementedError(
-                "turbo, mesh and shard_members are not ported yet (ROADMAP.md: mesh/turbo serving)"
-            )
         self.combine = combine
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _engine_device(mesh, device)
         disable_tf32()
         if params_list is None:
             if not model_paths:
                 raise ValueError("need model_paths or params_list")
             params_list = [load_params(p, model) for p in model_paths]
         self.num_members = len(params_list)
+        n = 1  # member shards: the mesh's tp with shard_members, else one
+        if mesh is not None and shard_members:
+            n = mesh.shape[mesh.axis_names[1]]
+            if self.num_members % n:
+                raise ValueError(
+                    f"shard_members needs num_members ({self.num_members}) "
+                    f"divisible by the mesh 'tp' axis ({n})"
+                )
         if mixed:
-            self._init_mixed(params_list, fam_names, families, config, model_kw, share_features)
+            make_groups = self._init_mixed(params_list, fam_names, families, config, model_kw, share_features)
         else:
             spec = get_model(model, **(model_kw or {}))
             self._spec = spec
-            self.config = config or _serving_config(spec, model)
-            group = _Group(spec, params_list, self.device, share_features, self.config.decoder)
-            self._groups = (group,)
-            self.params = group.stacked
-            self._shared_featurize = group.shared
+            config = config or _serving_config(spec, model)
+            if turbo:
+                config = dataclasses.replace(
+                    config, decoder=dataclasses.replace(config.decoder, recurrence_dtype="bfloat16")
+                )
+            self.config = config
+            self._shared_featurize = _shares_features(spec, params_list, share_features)
+            k = self.num_members // n
+
+            def make_groups(d, j):
+                members = params_list[j * k : (j + 1) * k]
+                return (_Group(spec, members, d, self._shared_featurize, config.decoder),)
+
+        # (device, member shard) -> groups; row i's shards sit on grid[i][:n]
+        rows = ((self.device,),) if mesh is None else tuple(row[:n] for row in mesh.grid)
+        self._cells = tuple(tuple((d, j) for j, d in enumerate(row)) for row in rows)
+        self._groups_on = {c: make_groups(*c) for c in dict.fromkeys(c for row in self._cells for c in row)}
+        first = self._groups_on[(self.device, 0)]
+        if mixed:
+            self.params = tuple(g.stacked for g in first)
+        else:
+            self.params = first[0].stacked if n == 1 else params_from_jax(stack_params(params_list), self.device)
+        # one family sharing features: a dp shard is featurized once, then
+        # every member shard runs its heads
+        self._featurize_first = not mixed and self._shared_featurize
         self.class_names = tuple(class_names or self.config.class_names)
-        self._has_aux = any(g.has_aux for g in self._groups)
+        self._has_aux = any(g.has_aux for g in first)
         self._init_serving()
 
-    def _init_mixed(self, params_list, fam_names, families, config, model_kw, share_features) -> None:
+    def _init_mixed(self, params_list, fam_names, families, config, model_kw, share_features):
         """Cross-family groups: one per family, in first-seen order, each
-        with its own overrides (registry.family_model_kw)."""
+        with its own overrides (registry.family_model_kw). Returns
+        make_groups(device, member shard) -> the groups on that device."""
         if families is None:
             if not fam_names:
                 raise ValueError("need a model string or explicit families")
@@ -246,28 +295,22 @@ class EnsembleEngine(_ServingBase):
         self.config = config or PipelineConfig(
             class_names=spec0.class_names, filter=FilterConfig(precision="fast")
         )
-        self._groups = tuple(
-            _Group(
-                spec,
-                [p for p, f in zip(params_list, families) if f == fam],
-                self.device,
-                share_features,
-                spec.config,
-            )
-            for fam, spec in specs.items()
+        members = {fam: [p for p, f in zip(params_list, families) if f == fam] for fam in specs}
+        shared = {fam: _shares_features(spec, members[fam], share_features) for fam, spec in specs.items()}
+        self._shared_featurize = tuple(shared.values())
+        return lambda d, j: tuple(
+            _Group(spec, members[fam], d, shared[fam], spec.config) for fam, spec in specs.items()
         )
-        self.params = tuple(g.stacked for g in self._groups)
-        self._shared_featurize = tuple(g.shared for g in self._groups)
 
-    def _forward(self, windows_btc: torch.Tensor):
-        filtered = mai_filter_batch(windows_btc, self.config.filter, device=self.device)
-        return self._decode_filtered(filtered)
+    def _forward(self, windows_btc: torch.Tensor, device: torch.device):
+        filtered = mai_filter_batch(windows_btc, self.config.filter, device=device)
+        return self._decode_filtered(filtered, self._groups_on[(device, 0)])
 
-    def _decode_filtered(self, filtered: torch.Tensor):
+    def _decode_filtered(self, filtered: torch.Tensor, groups):
         """Filtered windows -> (member logits [K, B, classes], flags [B] or
         None): flags are OR'd over the groups that have them, and all
         False when a group has a guard but none flagged a window."""
-        outs = [g.forward(filtered) for g in self._groups]
+        outs = [g.forward(filtered) for g in groups]
         logits = outs[0][0] if len(outs) == 1 else torch.cat([lg for lg, _ in outs])
         flags = None
         for _, f in outs:
@@ -277,16 +320,56 @@ class EnsembleEngine(_ServingBase):
             flags = torch.zeros(filtered.shape[0], dtype=torch.bool, device=filtered.device)
         return logits, flags
 
+    def _run(self, x: torch.Tensor, softmax: bool):
+        """Without a mesh, the base class's one pass. Under a mesh, two
+        rounds: each dp shard is filtered (and, with shared features,
+        featurized) on its row's first device; then each member shard of
+        the row decodes it on its device. The member logits are gathered
+        on the primary device in member order, and the guard flags OR'd."""
+        if self.mesh is None:
+            return super()._run(x, softmax)
+        primary = self.mesh.primary
+
+        def front(w):
+            filtered = mai_filter_batch(w, self.config.filter, device=w.device)
+            if self._featurize_first:
+                return self._groups_on[(w.device, 0)][0].featurize(filtered)
+            return filtered, None
+
+        def back(groups, inp):
+            if self._featurize_first:
+                return groups[0].heads(inp), None
+            return self._decode_filtered(inp, groups)
+
+        fronts = self.mesh.run([(w.device, front, (w,)) for w in batch_sharding(self.mesh, x)])
+        outs = iter(self.mesh.run([
+            (c[0], back, (self._groups_on[c], inp.to(c[0])))
+            for (inp, _), row in zip(fronts, self._cells)
+            for c in row
+        ]))
+        logits, flags = [], []
+        for (_, front_flags), row in zip(fronts, self._cells):
+            parts = [next(outs) for _ in row]
+            logits.append(torch.cat([lg.to(primary) for lg, _ in parts]))  # member order
+            row_flags = [f.to(primary) for f in [front_flags] + [f for _, f in parts] if f is not None]
+            if row_flags:
+                flags.append(torch.stack(row_flags).any(dim=0))
+        logits = torch.cat(logits, dim=1)
+        out = self._probs(logits) if softmax else logits
+        return out, (torch.cat(flags) if flags else None)
+
     def featurize(self, filtered: torch.Tensor):
         """The shared feature extraction of a single-family logcov
         ensemble: (feats [B, F], flags [B])."""
-        return self._groups[0].featurize(filtered)
+        return self._groups_on[(self.device, 0)][0].featurize(filtered)
 
     def heads(self, feats: torch.Tensor) -> torch.Tensor:
         """Every member's head of a single-family logcov ensemble on shared
-        features, in one pass over the stacked parameters:
-        [K, B, classes]."""
-        return self._groups[0].heads(feats)
+        features, one pass over the stacked parameters of each member
+        shard: [K, B, classes]."""
+        return torch.cat([
+            self._groups_on[c][0].heads(feats.to(c[0])).to(self.device) for c in self._cells[0]
+        ])
 
     def _probs(self, logits: torch.Tensor) -> torch.Tensor:
         return _combine_soft(torch.softmax(logits, dim=-1), self.combine)

@@ -4,6 +4,7 @@ neural_speech_decoding_tpu_torch.train`)."""
 
 from neural_speech_decoding_tpu_torch.train.loop import (  # noqa: F401
     TrainConfig,
+    TrainState,
     make_eval_fn,
     make_train_step,
     train,

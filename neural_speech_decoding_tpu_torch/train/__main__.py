@@ -10,8 +10,10 @@ come from the registry; the "5" variants train on the 5-class prefixes.
 The windows go through the fast MAI filter (the pair-sums kernel on the
 card). The .npz written is a native pytree that the port's
 InferenceEngine / run_trials (`--model <path> --family <name>`) serve and
-the JAX package's load_params_npz reads. `--mesh` (data parallelism) is
-not ported yet and is refused.
+the JAX package's load_params_npz reads.
+
+`--mesh` trains data-parallel (train/loop.py) over every visible card, a
+mesh with tp=1, and prints it, as the JAX CLI does; it raises without CUDA.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from neural_speech_decoding_tpu_torch.config import FIVE_CLASS_PREFIXES, THREE_C
 from neural_speech_decoding_tpu_torch.io.dataset import load_trials
 from neural_speech_decoding_tpu_torch.io.params_io import save_params_npz
 from neural_speech_decoding_tpu_torch.models.registry import available_models, get_model, parse_model_kw
-from neural_speech_decoding_tpu_torch.train.loop import MESH_NOT_PORTED, TrainConfig, train
+from neural_speech_decoding_tpu_torch.parallel.mesh import make_mesh
+from neural_speech_decoding_tpu_torch.train.loop import TrainConfig, train
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -48,7 +51,7 @@ def _parser() -> argparse.ArgumentParser:
                     help="tailoring lambda for the spatial filter")
     ap.add_argument("--out", default=None, help="output .npz checkpoint path")
     ap.add_argument("--history-out", default=None)
-    ap.add_argument("--mesh", action="store_true", help="data-parallel training (not ported yet: refused)")
+    ap.add_argument("--mesh", action="store_true", help="data-parallel training over a mesh (tp=1)")
     ap.add_argument(
         "--model-kw", action="append", default=[], metavar="KEY=VALUE",
         help="model-config override forwarded to the registry (repeatable), "
@@ -60,13 +63,16 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = _parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(MESH_NOT_PORTED)
     model_kw = parse_model_kw(args.model_kw)
     spec = get_model(args.model, **model_kw)
     prefixes = FIVE_CLASS_PREFIXES if len(spec.class_names) == 5 else THREE_CLASS_PREFIXES
     ds = load_trials(args.data_dir, class_prefixes=prefixes)
     print(f"dataset: {len(ds)} trials, classes {dict(zip(ds.class_prefixes, ds.class_counts().tolist()))}")
+
+    mesh = None
+    if args.mesh:
+        mesh = make_mesh(tp=1)
+        print(f"mesh: {dict(mesh.shape)}")
 
     params, history = train(
         ds,
@@ -85,6 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             early_stop_patience=args.patience,
         ),
         filter_cfg=FilterConfig(lambd=args.lambd, precision="fast"),
+        mesh=mesh,
         device=args.device,
     )
 

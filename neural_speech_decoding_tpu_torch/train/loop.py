@@ -24,8 +24,21 @@ jax.random keys:
     keep_best, early stop, and checkpoint/resume (train/checkpointing.py).
 
 The loop runs on the card unless the caller names another device; without
-CUDA and without a device it raises. Data parallelism (`mesh`) is not
-ported yet.
+CUDA and without a device it raises.
+
+With `mesh=` (parallel/mesh.Mesh) it trains data-parallel, as the JAX loop
+does under its mesh: the batch is max(dp, (batch_size // dp) * dp), the
+validation set is padded to a multiple of dp with weight 0, the windows are
+filtered dp-sharded, and there is no head-space fast path. Each dp shard
+runs the train-mode forward and backward on the first device of its row,
+with a replica of the parameters there and a loss normalised by the
+*global* batch (and class weights); the shard gradients are summed on the
+primary device in shard order, clipped once and stepped once, and the
+replicas are then updated from the primary. Each distinct device draws
+from its own torch.Generator, seeded with TrainConfig.seed plus the
+device's place in the mesh (the primary's is the one of the unsharded loop,
+which also draws the init); JAX draws the global batch's masks from one
+key, so the port's masks under a mesh differ from the unsharded ones.
 """
 
 from __future__ import annotations
@@ -42,13 +55,10 @@ import torch.nn.functional as F
 from neural_speech_decoding_tpu_torch.config import DecoderConfig, FilterConfig
 from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
 from neural_speech_decoding_tpu_torch.models.lstm import decoder_apply, init_decoder_params
-from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
+from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch, mai_filter_batch_sharded
+from neural_speech_decoding_tpu_torch.parallel.mesh import primary_device
+from neural_speech_decoding_tpu_torch.parallel.sharding import batch_sharding
 from neural_speech_decoding_tpu_torch.utils.device import DeviceLike, disable_tf32, resolve_device
-
-MESH_NOT_PORTED = (
-    "data-parallel training (mesh) is not ported yet "
-    "(ROADMAP.md: parallelism, DDP for training)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +90,16 @@ class TrainConfig:
     keep_best: bool = True
 
 
+@dataclasses.dataclass
+class TrainState:
+    """A run's state (JAX TrainState): the parameters, the optimizer (its
+    moments and step count with it) and the step."""
+
+    params: Any
+    optimizer: Any
+    step: int = 0
+
+
 # ---------------------------------------------------------------------------
 # parameter trees
 # ---------------------------------------------------------------------------
@@ -97,6 +117,10 @@ def _leaves(tree: Any, path: Tuple = ()) -> Iterator[Tuple[Tuple, torch.Tensor]]
 def _is_buffer(path: Tuple) -> bool:
     """A fitted buffer (the logcov whitener), not a weight."""
     return "whitener" in path
+
+
+def _trainable(params) -> List[torch.Tensor]:
+    return [t for path, t in _leaves(params) if not _is_buffer(path)]
 
 
 def _detached(tree: Any) -> Any:
@@ -174,7 +198,7 @@ class Optimizer:
     taken before it, as optax counts."""
 
     def __init__(self, params: Any, cfg: TrainConfig, steps_per_epoch: int = 1):
-        self.leaves = [t for path, t in _leaves(params) if not _is_buffer(path)]
+        self.leaves = _trainable(params)
         self.schedule = _schedule(cfg, steps_per_epoch)
         self.grad_clip = cfg.grad_clip
         self.count = 0
@@ -224,6 +248,16 @@ def _as_apply_fn(model) -> Callable:
     raise TypeError(f"cannot build apply fn from {type(model)}")
 
 
+def _per_example(logits: torch.Tensor, batch_y: torch.Tensor, label_smoothing: float) -> torch.Tensor:
+    """Softmax cross-entropy of each example against one-hot targets
+    smoothed by `label_smoothing`."""
+    n_cls = logits.shape[-1]
+    onehot = F.one_hot(batch_y.long(), n_cls).to(logits.dtype)
+    if label_smoothing > 0:
+        onehot = onehot * (1 - label_smoothing) + label_smoothing / n_cls
+    return -torch.sum(onehot * torch.log_softmax(logits, dim=-1), dim=-1)
+
+
 def _loss_fn(
     params, batch_x, batch_y, generator, apply_fn, label_smoothing: float, class_weights=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -232,11 +266,7 @@ def _loss_fn(
     `class_weights`, each example weighted by its class's weight and the
     sum divided by the weights' sum."""
     logits = apply_fn(params, batch_x, train=True, generator=generator)
-    n_cls = logits.shape[-1]
-    onehot = F.one_hot(batch_y.long(), n_cls).to(logits.dtype)
-    if label_smoothing > 0:
-        onehot = onehot * (1 - label_smoothing) + label_smoothing / n_cls
-    per_example = -torch.sum(onehot * torch.log_softmax(logits, dim=-1), dim=-1)
+    per_example = _per_example(logits, batch_y, label_smoothing)
     if class_weights is not None:
         w = torch.as_tensor(class_weights, dtype=logits.dtype, device=logits.device)[batch_y.long()]
         loss = torch.sum(w * per_example) / torch.clamp(torch.sum(w), min=1e-9)
@@ -263,6 +293,81 @@ def make_train_step(model, optimizer: Optimizer, label_smoothing: float = 0.0, c
     return step
 
 
+def make_sharded_train_step(
+    model, optimizer: Optimizer, mesh, label_smoothing: float = 0.0, class_weights=None
+) -> Callable:
+    """The data-parallel step over `mesh`: step(replicas, x [B,T,C], y [B],
+    generators) -> {"loss", "accuracy"} on the primary device.
+
+    `replicas` maps each distinct device of the mesh to its copy of the
+    parameters (the primary's is the tree `optimizer` steps);
+    `generators` maps each to its torch.Generator. x and y split over
+    'dp' (B must divide); each shard's forward and backward runs on its
+    row's first device, its loss normalised by the global batch (and class
+    weights), so that the shards' gradients sum to the batch's. The sum
+    is taken on the primary in shard order, the optimizer steps once, and
+    the other replicas are copied from the primary."""
+    apply_fn = _as_apply_fn(model)
+    class_weights = tuple(class_weights) if class_weights is not None else None
+    primary = mesh.primary
+
+    def shard(params, x, y, generator, n_total, w_total):
+        logits = apply_fn(params, x, train=True, generator=generator)
+        per_example = _per_example(logits, y, label_smoothing)
+        if class_weights is not None:
+            w = torch.as_tensor(class_weights, dtype=logits.dtype, device=logits.device)[y.long()]
+            loss = torch.sum(w * per_example) / w_total.to(logits.device)
+        else:
+            loss = torch.sum(per_example) / n_total
+        correct = (logits.argmax(-1) == y).to(torch.float32).sum() / n_total
+        leaves = _trainable(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), correct, grads
+
+    def step(replicas, x, y, generators):
+        n_total = int(x.shape[0])
+        w_total = None
+        if class_weights is not None:
+            cw = torch.as_tensor(class_weights, dtype=torch.float32, device=y.device)
+            w_total = torch.clamp(cw[y.long()].sum(), min=1e-9)
+        xs, ys = batch_sharding(mesh, x), batch_sharding(mesh, y)
+        outs = mesh.run([
+            (w.device, shard, (replicas[w.device], w, t, generators[w.device], n_total, w_total))
+            for w, t in zip(xs, ys)
+        ])
+        optimizer.zero_grad()
+        for k, leaf in enumerate(_trainable(replicas[primary])):
+            parts = [o[2][k] for o in outs if o[2][k] is not None]
+            if parts:
+                total = parts[0].to(primary)
+                for g in parts[1:]:
+                    total = total + g.to(primary)
+                leaf.grad = total
+        optimizer.step()
+        for d, tree in replicas.items():
+            if d != primary:
+                _copy_into(tree, replicas[primary])
+        loss = sum(o[0].to(primary) for o in outs)
+        acc = sum(o[1].to(primary) for o in outs)
+        return {"loss": loss, "accuracy": acc}
+
+    return step
+
+
+def _eval_sums(apply_fn, params, x, y, w) -> torch.Tensor:
+    """[sum of w * loss, sum of w * correct, sum of w] of an eval-mode
+    forward."""
+    logits = apply_fn(params, x, train=False)
+    per = -torch.log_softmax(logits, dim=-1).gather(1, y.long()[:, None])[:, 0]
+    correct = (logits.argmax(-1) == y).to(torch.float32)
+    return torch.stack([torch.sum(per * w), torch.sum(correct * w), torch.sum(w)])
+
+
+def _eval_metrics(sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+    denom = torch.clamp(sums[2], min=1.0)
+    return {"loss": sums[0] / denom, "accuracy": sums[1] / denom}
+
+
 def make_eval_fn(model) -> Callable:
     apply_fn = _as_apply_fn(model)
 
@@ -270,14 +375,44 @@ def make_eval_fn(model) -> Callable:
     def evaluate(params, x, y, w):
         """Eval-mode loss and accuracy, each example weighted by w (0 for
         padding rows)."""
-        logits = apply_fn(params, x, train=False)
-        per = -torch.log_softmax(logits, dim=-1).gather(1, y.long()[:, None])[:, 0]
-        denom = torch.clamp(torch.sum(w), min=1.0)
-        loss = torch.sum(per * w) / denom
-        acc = torch.sum((logits.argmax(-1) == y).to(torch.float32) * w) / denom
-        return {"loss": loss, "accuracy": acc}
+        return _eval_metrics(_eval_sums(apply_fn, params, x, y, w))
 
     return evaluate
+
+
+def make_sharded_eval_fn(model, mesh) -> Callable:
+    """evaluate(replicas, x, y, w) over `mesh`: each dp shard's weighted
+    sums on its row's first device, added on the primary in shard order
+    (B must divide by dp)."""
+    apply_fn = _as_apply_fn(model)
+
+    @torch.no_grad()
+    def evaluate(replicas, x, y, w):
+        shards = zip(*(batch_sharding(mesh, a) for a in (x, y, w)))
+        parts = mesh.run([(xs.device, _eval_sums, (apply_fn, replicas[xs.device], xs, ys, ws)) for xs, ys, ws in shards])
+        return _eval_metrics(sum(p.to(mesh.primary) for p in parts))
+
+    return evaluate
+
+
+def _pad_to_multiple(x: np.ndarray, m: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad axis 0 to a multiple of m (repeating row 0); returns (padded,
+    weights) with weights 0 on padding (JAX loop.py:140-148)."""
+    n = x.shape[0]
+    pad = (-n) % m
+    w = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    if pad:
+        x = np.concatenate([x, np.repeat(x[:1], pad, axis=0)], axis=0)
+    return x, w
+
+
+def _filter_windows(windows: np.ndarray, filter_cfg: FilterConfig, dev, mesh) -> np.ndarray:
+    """The MAI filter of the training windows: on `dev`, or dp-sharded over
+    `mesh` (padded to a multiple of dp, the padding dropped)."""
+    if mesh is None:
+        return mai_filter_batch(windows, filter_cfg, device=dev).cpu().numpy()
+    padded, _ = _pad_to_multiple(np.asarray(windows), mesh.shape[mesh.axis_names[0]])
+    return mai_filter_batch_sharded(padded, filter_cfg, mesh=mesh)[: len(windows)].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -305,10 +440,10 @@ def train(
     ModelSpec; otherwise the reference LSTM with `decoder_cfg`.
     `init_params`: a parameter pytree (numpy or tensor leaves) to start
     from instead of the family's init and fit. `device`: the training
-    device (CUDA unless named)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    device (CUDA unless named). `mesh`: a parallel/mesh.Mesh to train
+    data-parallel over (module docstring); the training device is then its
+    primary device."""
+    dev = resolve_device(device) if mesh is None else primary_device(mesh, device)
     if model is not None:
         if isinstance(model, str):
             from neural_speech_decoding_tpu_torch.models.registry import get_model
@@ -334,8 +469,8 @@ def train(
         x_train = np.stack([preprocessed[index[f]] for f in train_ds.files])
         x_val = np.stack([preprocessed[index[f]] for f in val_ds.files])
     else:
-        x_train = mai_filter_batch(train_ds.windows, filter_cfg, device=dev).cpu().numpy()
-        x_val = mai_filter_batch(val_ds.windows, filter_cfg, device=dev).cpu().numpy()
+        x_train = _filter_windows(train_ds.windows, filter_cfg, dev, mesh)
+        x_val = _filter_windows(val_ds.windows, filter_cfg, dev, mesh)
     y_train = train_ds.labels.astype(np.int32)
     y_val = val_ds.labels.astype(np.int32)
 
@@ -362,10 +497,16 @@ def train(
     for path, t in _leaves(params):
         t.requires_grad_(not _is_buffer(path))
 
+    w_val_np = np.ones(x_val.shape[0], np.float32)
+    if mesh is not None:  # the validation set padded to a multiple of dp, weight 0
+        dp = mesh.shape[mesh.axis_names[0]]
+        x_val, w_val_np = _pad_to_multiple(x_val, dp)
+        y_val, _ = _pad_to_multiple(y_val, dp)
     x_train_t = torch.as_tensor(x_train, dtype=torch.float32, device=dev)
     x_val_t = torch.as_tensor(x_val, dtype=torch.float32, device=dev)
-    # head-space fast path: featurize once, train the head every step
-    if spec is not None and spec.featurize is not None:
+    # head-space fast path: featurize once, train the head every step (the
+    # mesh path keeps the full apply, as the JAX loop's does)
+    if mesh is None and spec is not None and spec.featurize is not None:
         with torch.no_grad():
             x_train_t = spec.featurize(params, x_train_t)
             x_val_t = spec.featurize(params, x_val_t)
@@ -375,13 +516,10 @@ def train(
         )
     y_train_t = torch.as_tensor(y_train, dtype=torch.int64, device=dev)
     y_val_t = torch.as_tensor(y_val, dtype=torch.int64, device=dev)
-    w_val = torch.ones(x_val_t.shape[0], dtype=torch.float32, device=dev)
+    w_val = torch.as_tensor(w_val_np, device=dev)
 
     steps_per_epoch = max(1, x_train_t.shape[0] // max(1, train_cfg.batch_size))
     optimizer = Optimizer(params, train_cfg, steps_per_epoch)
-    step_fn = make_train_step(model_for_step, optimizer, train_cfg.label_smoothing)
-    eval_fn = make_eval_fn(model_for_step)
-    bs = train_cfg.batch_size
 
     start_epoch = 0
     if train_cfg.checkpoint_dir and train_cfg.resume:
@@ -395,6 +533,24 @@ def train(
             if verbose:
                 print(f"resumed from epoch {last}", flush=True)
 
+    if mesh is None:
+        step_fn = make_train_step(model_for_step, optimizer, train_cfg.label_smoothing)
+        eval_fn = make_eval_fn(model_for_step)
+        state, generators = params, generator
+        bs = train_cfg.batch_size
+    else:
+        state, generators = {dev: params}, {dev: generator}
+        for k, d in enumerate(mesh.distinct):
+            if d != dev:
+                state[d] = params_from_jax(params, d)
+                for path, t in _leaves(state[d]):
+                    t.requires_grad_(not _is_buffer(path))
+                generators[d] = torch.Generator(device=d)
+                generators[d].manual_seed(train_cfg.seed + k)
+        step_fn = make_sharded_train_step(model_for_step, optimizer, mesh, train_cfg.label_smoothing)
+        eval_fn = make_sharded_eval_fn(model_for_step, mesh)
+        bs = max(dp, (train_cfg.batch_size // dp) * dp)
+
     history: List[Dict[str, float]] = []
     best_acc, best_params = -1.0, None
     epochs_since_best = 0
@@ -406,10 +562,10 @@ def train(
         losses, accs = [], []
         for i in range(0, n - bs + 1, bs):
             idx = perm[i : i + bs]
-            m = step_fn(params, x_train_t[idx], y_train_t[idx], generator)
+            m = step_fn(state, x_train_t[idx], y_train_t[idx], generators)
             losses.append(m["loss"])
             accs.append(m["accuracy"])
-        val_m = eval_fn(params, x_val_t, y_val_t, w_val)
+        val_m = eval_fn(state, x_val_t, y_val_t, w_val)
         rec = {
             "epoch": epoch,
             "train_loss": float(torch.stack(losses).mean()) if losses else float("nan"),

@@ -1228,3 +1228,191 @@ def test_fit_ensemble_served_on_cuda(cuda, tmp_path, monkeypatch):
     got = EnsembleEngine.from_manifest(manifest).predict_batch(x)
     want = EnsembleEngine.from_manifest(manifest, device="cpu").predict_batch(x)
     assert np.abs(got - want).max() <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the one-process mesh, on one card repeated and on distinct cards
+# ---------------------------------------------------------------------------
+def _mesh(devices, tp=1):
+    from neural_speech_decoding_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices, tp=tp)
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return ["cuda:0", "cuda:1"]
+
+
+def _golden_dataset(step: int = 3):
+    from neural_speech_decoding_tpu_torch.config import THREE_CLASS_PREFIXES
+    from neural_speech_decoding_tpu_torch.io.dataset import TrialDataset
+
+    with np.load(REPO / "tests" / "golden" / "reference_filtered.npz", allow_pickle=False) as z:
+        files = [str(f) for f in z["files"]]
+        keep = [i for i, f in enumerate(files) if f.split("_")[0] in THREE_CLASS_PREFIXES][::step]
+        windows = z["filtered"][keep]
+    labels = np.asarray([THREE_CLASS_PREFIXES.index(files[i].split("_")[0]) for i in keep], np.int32)
+    return TrialDataset(windows, labels, THREE_CLASS_PREFIXES, tuple(files[i] for i in keep))
+
+
+def test_mesh_worker_makes_its_device_current(cuda):
+    mesh = _mesh(["cuda:0"] * 2)
+    assert mesh.distinct == (torch.device("cuda", 0),)
+    assert mesh.run([(d, torch.cuda.current_device, ()) for d in mesh.axis_devices("dp")]) == [0, 0]
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_flagship_mesh_one_card(cuda, dp):
+    """The flagship over dp shards of one card: pair sums, band grams and
+    the feature kernel dp times a call; probabilities within 1e-5 of the
+    unsharded card engine, equal argmax and guard counts."""
+    x = _board_windows(37, 8)
+    x[3] = 0.0
+    base = EnsembleEngine.from_manifest(str(FLAGSHIP))
+    want = base.predict_batch(x)
+    eng = EnsembleEngine.from_manifest(str(FLAGSHIP), mesh=_mesh(["cuda:0"] * dp))
+    kernels.reset_launches()
+    got = eng.predict_batch(x)
+    torch.cuda.synchronize()
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update(kuramoto_pair_sums=dp, bandcov_grams=dp, logcov_feats=dp)
+    assert kernels.launches() == want_launches
+    assert np.abs(got - want).max() <= 1e-5
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    assert eng.stats == base.stats
+
+
+def test_shard_members_one_card(cuda):
+    """4 flagship members over dp2 x tp2 on one card: the features once a
+    dp shard, each member shard's heads on its device, member logits in
+    order; as the unsharded card engine within 1e-5."""
+    import json
+
+    manifest = json.loads(FLAGSHIP.read_text())
+    paths = [str(REPO / "checkpoints" / Path(p).name) for p in manifest["members"]][:4]
+    kw = dict(model="logcov8", model_kw=manifest["config"]["model_kw"])
+    x = _board_windows(37, 9)
+    base = EnsembleEngine(paths, **kw)
+    eng = EnsembleEngine(paths, mesh=_mesh(["cuda:0"] * 4, tp=2), shard_members=True, **kw)
+    kernels.reset_launches()
+    got_l = eng.logits_batch(x)
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    assert (launches["kuramoto_pair_sums"], launches["bandcov_grams"], launches["logcov_feats"]) == (2, 2, 2)
+    assert np.abs(got_l - base.logits_batch(x)).max() <= 1e-5
+    assert np.abs(eng.predict_batch(x) - base.predict_batch(x)).max() <= 1e-5
+
+
+def test_lstm_mesh_filter_and_collectives_one_card(cuda):
+    """The LSTM engine over dp2 of one card, mai_filter_batch_sharded (the
+    pair sums once a shard) and sharded_eval against the local counts."""
+    from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch_sharded
+    from neural_speech_decoding_tpu_torch.parallel.collective import sharded_eval
+
+    npz = str(REPO / "checkpoints" / "lstm3_retrained.npz")
+    x = _board_windows(16, 10)
+    mesh = _mesh(["cuda:0"] * 2)
+    want = InferenceEngine(npz).predict_batch(x)
+    eng = InferenceEngine(npz, mesh=mesh)
+    kernels.reset_launches()
+    got = eng.predict_batch(x)
+    assert kernels.launches()["kuramoto_pair_sums"] == 2
+    assert np.abs(got - want).max() <= 1e-5
+    kernels.reset_launches()
+    filtered = mai_filter_batch_sharded(x, FilterConfig(precision="fast"), mesh=mesh)
+    assert kernels.launches()["kuramoto_pair_sums"] == 2 and filtered.is_cuda
+    assert torch.equal(filtered, mai_filter_batch(x, FilterConfig(precision="fast")))
+    labels = np.arange(16) % 3
+    acc, total = sharded_eval(mesh, lambda p, w: decoder_logits(p, w), eng.params, filtered.cpu().numpy(), labels)
+    with torch.no_grad():
+        local = decoder_logits(eng.params, filtered).argmax(1).cpu().numpy()
+    assert total == 16 and acc == float((local == labels).sum()) / 16
+
+
+def test_train_mesh_one_card(cuda):
+    """train(mesh=) on one card repeated: the flagship recipe for a few
+    epochs, the loss falls, the parameters stay on the card."""
+    from neural_speech_decoding_tpu_torch.train.loop import TrainConfig, _leaves, train
+
+    ds = _golden_dataset()
+    params, hist = train(ds, model="logcov8", model_kw={"whiten": True, "dropout": 0.0}, mesh=_mesh(["cuda:0"] * 2),
+                         train_cfg=TrainConfig(epochs=6, batch_size=16, label_smoothing=0.1, learning_rate=3e-3),
+                         preprocessed=ds.windows, verbose=False)
+    assert hist[-1]["train_loss"] < hist[0]["train_loss"]
+    assert all(t.is_cuda for _, t in _leaves(params))
+
+
+def test_mesh_distinct_cards(cuda):
+    """Two distinct cards: each shard's worker has its card current and its
+    batch on it, the flagship over the two agrees with the unsharded
+    engine, training runs, and a sharded step leaves the replica on the
+    second card equal to the primary's parameters."""
+    from neural_speech_decoding_tpu_torch.parallel.sharding import batch_sharding
+    from neural_speech_decoding_tpu_torch.train.loop import TrainConfig, _leaves, train
+
+    devices = _two_cards()
+    mesh = _mesh(devices)
+    assert mesh.run([(d, torch.cuda.current_device, ()) for d in mesh.distinct]) == [0, 1]
+    assert [s.device.index for s in batch_sharding(mesh, torch.zeros(4, 2))] == [0, 1]
+    x = _board_windows(37, 11)
+    want = EnsembleEngine.from_manifest(str(FLAGSHIP)).predict_batch(x)
+    got = EnsembleEngine.from_manifest(str(FLAGSHIP), mesh=mesh).predict_batch(x)
+    assert np.abs(got - want).max() <= 1e-5
+    ds = _golden_dataset(step=6)
+    params, hist = train(ds, model="logcov8", model_kw={"whiten": True, "dropout": 0.0}, mesh=mesh,
+                         train_cfg=TrainConfig(epochs=2, batch_size=8), preprocessed=ds.windows, verbose=False)
+    assert np.isfinite(hist[-1]["train_loss"])
+    assert all(t.device.index == 0 for _, t in _leaves(params))
+    # one sharded step by hand: the replica on cuda:1 is the primary's after it
+    from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
+    from neural_speech_decoding_tpu_torch.train import loop
+
+    spec = get_model("logcov8", whiten=True, dropout=0.0)
+    replicas = {d: params_from_jax(params, d) for d in mesh.distinct}
+    for tree in replicas.values():
+        for path, t in _leaves(tree):
+            t.requires_grad_(not loop._is_buffer(path))
+    optimizer = loop.Optimizer(replicas[mesh.primary], TrainConfig())
+    step = loop.make_sharded_train_step(spec, optimizer, mesh, label_smoothing=0.1)
+    gens = {d: torch.Generator(device=d) for d in mesh.distinct}
+    step(replicas, torch.from_numpy(ds.windows[:8]).cuda(), torch.from_numpy(ds.labels[:8]).long().cuda(), gens)
+    for (_, a), (_, b) in zip(_leaves(replicas[mesh.primary]), _leaves(replicas[torch.device("cuda", 1)])):
+        assert torch.equal(a.detach().cpu(), b.detach().cpu())
+
+
+def test_mesh_four_cards(cuda):
+    """Four distinct cards: the LSTM engine over dp4, and 4 flagship members
+    with shard_members over dp2 x tp2 laid out [[0, 2], [1, 3]], so that
+    each dp row starts on its own card and each member shard decodes on
+    another; both as the unsharded card engine within 1e-5, pair sums (and
+    band grams and features) once a dp shard."""
+    import json
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    x = _board_windows(37, 12)
+    npz = str(REPO / "checkpoints" / "lstm3_retrained.npz")
+    want = InferenceEngine(npz).predict_batch(x)
+    eng = InferenceEngine(npz, mesh=_mesh([f"cuda:{i}" for i in range(4)]))
+    kernels.reset_launches()
+    got = eng.predict_batch(x)
+    assert kernels.launches()["kuramoto_pair_sums"] == 4
+    assert np.abs(got - want).max() <= 1e-5
+
+    manifest = json.loads(FLAGSHIP.read_text())
+    paths = [str(REPO / "checkpoints" / Path(p).name) for p in manifest["members"]][:4]
+    kw = dict(model="logcov8", model_kw=manifest["config"]["model_kw"])
+    base = EnsembleEngine(paths, **kw)
+    mesh = _mesh(["cuda:0", "cuda:2", "cuda:1", "cuda:3"], tp=2)
+    sharded = EnsembleEngine(paths, mesh=mesh, shard_members=True, **kw)
+    assert sorted((d.index, j) for d, j in sharded._groups_on) == [(0, 0), (1, 0), (2, 1), (3, 1)]
+    kernels.reset_launches()
+    got_l = sharded.logits_batch(x)
+    launches = kernels.launches()
+    assert (launches["kuramoto_pair_sums"], launches["bandcov_grams"], launches["logcov_feats"]) == (2, 2, 2)
+    assert np.abs(got_l - base.logits_batch(x)).max() <= 1e-5
+    assert np.abs(sharded.predict_batch(x) - base.predict_batch(x)).max() <= 1e-5
+    assert sharded.stats == base.stats

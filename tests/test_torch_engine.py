@@ -125,22 +125,26 @@ def test_engine_refusals(monkeypatch):
 
 
 def test_engine_takes_the_jax_keywords():
-    """turbo, donate and mesh, as the JAX InferenceEngine takes them: the
-    defaults serve as before; turbo serves the LSTM with a bfloat16
-    recurrence, as JAX's does (same argmax here); donate or mesh other than
-    the default raises NotImplementedError naming ROADMAP.md (never
-    TypeError)."""
+    """turbo, donate and mesh, as the JAX InferenceEngine takes them: turbo
+    serves the LSTM with a bfloat16 recurrence, as JAX's does (same argmax
+    here); donate has no effect, as in JAX; a mesh (the CPU repeated)
+    splits the batch over dp and serves the same probabilities."""
+    from neural_speech_decoding_tpu_torch.parallel import make_mesh
+
     engine = InferenceEngine(str(NPZ3), turbo=False, donate=False, mesh=None, device="cpu")
-    x = raw_windows(2, 4)
+    x = raw_windows(3, 4)
     probs = engine.predict_batch(x)
-    assert probs.shape == (2, 3)
+    assert probs.shape == (3, 3)
     turbo = InferenceEngine(str(NPZ3), turbo=True, device="cpu")
     assert turbo.config.decoder.recurrence_dtype == "bfloat16"
     assert engine.config.decoder.recurrence_dtype == "float32"
     np.testing.assert_array_equal(turbo.predict_batch(x).argmax(1), probs.argmax(1))
-    for kw in ({"donate": True}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            InferenceEngine(str(NPZ3), device="cpu", **kw)
+    donated = InferenceEngine(str(NPZ3), donate=True, device="cpu")
+    np.testing.assert_array_equal(donated.predict_batch(x), probs)
+    sharded = InferenceEngine(str(NPZ3), mesh=make_mesh(["cpu"] * 2, tp=1), donate=True)
+    assert sharded.device == torch.device("cpu") and sharded._bucket_padded(3) == 4
+    assert np.abs(sharded.predict_batch(x) - probs).max() <= 1e-6
+    assert sharded.stats == {"windows": 3, "guard_flagged": 0}
 
 
 def test_pth_round_trip(tmp_path):

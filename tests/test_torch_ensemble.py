@@ -170,9 +170,16 @@ def test_ensemble_refusals():
         for kw in ({"turbo": True}, {"shard_members": True}):
             with pytest.raises(ValueError, match="turbo/shard_members"):
                 make(paths, model="logcov8+logcov12", **kw)
-    for kw in ({"turbo": True}, {"mesh": object()}, {"shard_members": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            EnsembleEngine(paths, model="logcov8", device="cpu", **kw)
+    # one family: turbo, mesh and shard_members serve (turbo has no effect
+    # on logcov; shard_members without a mesh is ignored, as in JAX)
+    from neural_speech_decoding_tpu_torch.parallel import make_mesh
+
+    x = raw_windows(5, 2)
+    want = EnsembleEngine(paths, model="logcov8", device="cpu").predict_batch(x)
+    mesh = make_mesh(["cpu"] * 4, tp=2)
+    for kw in ({"turbo": True}, {"mesh": mesh}, {"shard_members": True}, {"mesh": mesh, "shard_members": True}):
+        eng = EnsembleEngine(paths, model="logcov8", device=None if "mesh" in kw else "cpu", **kw)
+        assert np.abs(eng.predict_batch(x) - want).max() <= 1e-6
     with pytest.raises(ValueError, match="model_paths or params_list"):
         EnsembleEngine(model="logcov8", device="cpu")
 

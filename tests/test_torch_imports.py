@@ -39,3 +39,31 @@ def test_no_jax_imports(path):
     text = path.read_text()
     assert "import jax" not in text
     assert "neural_speech_decoding_tpu." not in text.replace("neural_speech_decoding_tpu_torch.", "")
+
+
+def _exported(path: Path) -> set:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {alias.asname or alias.name for node in ast.walk(tree) if isinstance(node, ast.ImportFrom)
+            for alias in node.names}
+
+
+@pytest.mark.parametrize("sub", ["parallel", "train"])
+def test_package_exports_match_jax(sub):
+    """The port's parallel/ and train/ export what the JAX package's do
+    (parallel: make_mesh, mesh_axes, batch_sharding, replicate,
+    shard_params_tp, sharded_predict_fn; train: TrainState among them)."""
+    import importlib
+
+    port = importlib.import_module(f"neural_speech_decoding_tpu_torch.{sub}")
+    want = _exported(REPO / "neural_speech_decoding_tpu" / sub / "__init__.py")
+    assert want and want <= set(dir(port))
+
+
+def test_slice_8_modules_import():
+    import importlib
+
+    for name in ("parallel.mesh", "parallel.sharding", "parallel.collective", "tools.sweep"):
+        importlib.import_module(f"neural_speech_decoding_tpu_torch.{name}")
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch_sharded
+
+    assert callable(mai_filter_batch_sharded)

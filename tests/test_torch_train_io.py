@@ -164,8 +164,23 @@ def test_cli_trains_the_flagship_recipe_on_the_cpu(trials_dir, tmp_path):
     np.testing.assert_allclose(engine.logits_batch(windows), got, rtol=0, atol=1e-5)
 
 
-def test_cli_refusals(trials_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        main(["--mesh", "--device", "cpu", "--data-dir", str(trials_dir)])
+def test_cli_refusals(trials_dir, tmp_path, capsys, monkeypatch):
+    # --mesh trains over make_mesh(tp=1) and prints it, as the JAX CLI does
+    # (here a mesh of two CPU places stands in for the visible cards)
+    import neural_speech_decoding_tpu_torch.train.__main__ as cli
+
+    real_make_mesh = cli.make_mesh
+    monkeypatch.setattr(cli, "make_mesh", lambda tp=None: real_make_mesh(["cpu"] * 2, tp=tp))
+    out = tmp_path / "mesh.npz"
+    main(["--mesh", "--device", "cpu", "--data-dir", str(trials_dir), "--model", "logcov8",
+          "--model-kw", "whiten=true", "--model-kw", "dropout=0.0", "--epochs", "1", "--batch-size", "8",
+          "--out", str(out)])
+    assert "mesh: {'dp': 2, 'tp': 1}" in capsys.readouterr().out
+    assert np.asarray(jax_load_npz(out)["whitener"]).shape == (8, 8, 8)
+    monkeypatch.undo()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--mesh", "--data-dir", str(trials_dir)])
+    monkeypatch.undo()
     with pytest.raises(SystemExit):
         main(["--model", "nope"])

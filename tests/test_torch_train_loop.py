@@ -240,8 +240,16 @@ def test_keep_best_early_stop_and_resume(tmp_path):
 
 def test_train_refusals(monkeypatch):
     ds = _separable(n_per_class=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train(ds, mesh=object(), device="cpu")
+    # a mesh trains (data parallel over the CPU repeated); its primary
+    # device is the training device
+    from neural_speech_decoding_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(["cpu"] * 2, tp=1)
+    params, hist = train(ds, mesh=mesh, train_cfg=TrainConfig(epochs=1, batch_size=2, val_fraction=0.5),
+                         preprocessed=ds.windows, verbose=False, device="cpu")
+    assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
+    with pytest.raises(ValueError, match="primary"):
+        train(ds, mesh=mesh, preprocessed=ds.windows, verbose=False, device="meta")
     with pytest.raises(ValueError, match="unknown schedule"):
         train(ds, train_cfg=TrainConfig(epochs=1, schedule="nope"), preprocessed=ds.windows, verbose=False,
               device="cpu")
