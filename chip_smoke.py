@@ -178,7 +178,34 @@ of the checkout. One line per phase, each with its elapsed seconds:
   3d. the device-only times (torch.profiler's kernel events over 20
      back-to-back calls) of phase 3's timed calls: the band grams and
      their yardstick at B = 1, 1024 and 16384, every other kernel at
-     B = 1024; after phase 9, so that 9g's trace is the process's first
+     B = 1024; after phase 9, so that 9g's trace is the process's first,
+     and before phase 11
+  11. the reference app's surface and the remaining entry points, under a
+     temporary directory of their own, each part with the launch counts
+     set to 0 before and read after, and held against the same call on
+     the CPU:
+     11a. utilities.tester.run_trials(trials=3) on a SyntheticBoard(speed=
+          64): exactly 3 pair-sums launches, avg_probs summing to 1, the 3
+          decoded windows against the CPU engine
+     11b. utilities.lstm_eeg_model.SimplePredictor on a .pth written from
+          lstm3_retrained.npz by the port's exporter: 16 windows against
+          the CPU (|delta prob|, labels), no kernel launched (the shim's
+          FilterConfig(lambd=...) is "highest": the float64 stages filter)
+     11c. utilities.preprocessor.PreProcessor.transform against the CPU
+     11d. NeuroPawnConnector, KnightBoard (16 config commands after the
+          start, in the legacy order) and StreamingProcess on synthetic
+          boards
+     11e. tools.eval_models on 90 synthetic trials with --reference: the
+          pair-sums kernel once (the 3-class split), every accuracy in
+          [0, 1] and within one window of the CPU's
+     11f. tools.fidelity_report --stages against a golden dump written
+          from the CPU engine in float64 on those trials (and the tool's
+          float64 reference filter): the f64 mode within LOGIT_TOL, every
+          mode's numbers printed, pair sums twice (fast, turbo)
+     11g. the quickstart on those trials: the pair-sums, band-gram and
+          feature kernels launched, its 16-window decodes against the CPU
+     11h. entry()'s forward (one pair-sums launch) against the CPU, and
+          dryrun_multichip(2) on the mesh of phase 10's devices
   6. a JSON line of the kernels, then the result line
 
 Any failure raises and exits non-zero; so does a machine without CUDA.
@@ -1672,15 +1699,24 @@ def recording_synthetic_board(speed: float, seed: int):
 
 
 @contextlib.contextmanager
-def recorded(module, name: str):
-    """Within the block, module.<name> keeps each call's result in the
-    list it yields."""
-    fn, kept = getattr(module, name), []
-    setattr(module, name, lambda *a, **kw: kept.append(fn(*a, **kw)) or kept[-1])
+def recorded(owner, name: str):
+    """Within the block, owner.<name> (a module's function or a class's
+    method) keeps (args, result) of each call in the list it yields."""
+    fn, own, kept = getattr(owner, name), name in vars(owner), []
+
+    def keep(*args, **kw):
+        out = fn(*args, **kw)
+        kept.append((args, out))
+        return out
+
+    setattr(owner, name, keep)
     try:
         yield kept
     finally:
-        setattr(module, name, fn)
+        if own:
+            setattr(owner, name, fn)
+        else:
+            delattr(owner, name)
 
 
 def check_analysis_path(dev, smi: str, flagship) -> list:
@@ -1778,7 +1814,8 @@ def check_analysis_path(dev, smi: str, flagship) -> list:
                         torch.cuda.synchronize()
                     seconds = time.perf_counter() - t
                     launches = kernels.launches()
-                draws[label] = ({"stratified_folds": folds, "augment_batch_np": augs}, summary, seconds, launches)
+                draws[label] = ({"stratified_folds": [out for _, out in folds], "augment_batch_np": [out for _, out in augs]},
+                                summary, seconds, launches)
             kept, summary, cv_s, cv_launches = draws["card"]
             kept_cpu, summary_cpu, cpu_s, _ = draws["cpu"]
             runs.append(cv_launches)
@@ -2197,6 +2234,238 @@ def check_mesh_path(dev, smi: str, windows: np.ndarray, lstm_probs: np.ndarray, 
     phase(f"10g sweep --train-winner ({3 * SWEEP_PER_CLASS} synthetic trials; the logcov grid cut to the flagship "
           f"combination, 2 folds, 30 epochs): {sw_s:.3f} s; nested {nested:.3f}; launches {launches}; winner served "
           f"card vs cpu, 16 windows, |dlogit| {dl:.3e}")
+    return runs
+
+
+# 11: the reference surface, the evaluation and fidelity tools, the
+# quickstart and entry.py
+SURFACE_TRIALS = 90  # write_trials' board-like trials for 11e-11g
+SURFACE_FILTER_TOL = 1e-6  # PreProcessor card vs CPU, over the window's max |output|: float64, then float32
+LEGACY_COMMANDS = [c for x in range(1, 9) for c in (f"chon_{x}_12", f"rldadd_{x}")]
+
+
+def check_reference_surface(dev, smi: str) -> list:
+    """Phase 11: the reference app's import surface (utilities/), the
+    model-evaluation and fidelity tools, the quickstart and
+    entry.py on the card, the launch counts set to 0 before each part and
+    read after it, each part held against the same call on the CPU.
+    Returns the launch counts of the parts."""
+    import queue
+
+    from neural_speech_decoding_tpu_torch import entry as port_entry
+    from neural_speech_decoding_tpu_torch import quickstart
+    from neural_speech_decoding_tpu_torch.config import FIVE_CLASS_PREFIXES, FilterConfig
+    from neural_speech_decoding_tpu_torch.io.dataset import load_trials
+    from neural_speech_decoding_tpu_torch.io.export import decoder_params_to_torch_state, save_torch_checkpoint
+    from neural_speech_decoding_tpu_torch.io.from_jax import params_from_jax
+    from neural_speech_decoding_tpu_torch.io.params_io import load_params_npz
+    from neural_speech_decoding_tpu_torch.models.lstm import decoder_logits
+    from neural_speech_decoding_tpu_torch.ops import kernels
+    from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch
+    from neural_speech_decoding_tpu_torch.runtime.board import SyntheticBoard
+    from neural_speech_decoding_tpu_torch.runtime.engine import InferenceEngine
+    from neural_speech_decoding_tpu_torch.runtime.ensemble import EnsembleEngine
+    from neural_speech_decoding_tpu_torch.tools import eval_models, fidelity_report
+    from neural_speech_decoding_tpu_torch.utilities import (
+        knight_board_init,
+        lstm_eeg_model,
+        neurokit_connector,
+        preprocessor,
+        streaming_process,
+        tester,
+    )
+
+    runs = []
+    t_phase = time.perf_counter()
+
+    def part(fn):
+        """fn() with the counts set to 0 before and read after; returns
+        (result, launches, seconds to a synchronize)."""
+        kernels.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        launches = kernels.launches()
+        runs.append(launches)
+        return out, launches, s
+
+    def exactly(label, launches, want):
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+
+        # 11a. run_trials through the reference import path
+        with recorded(InferenceEngine, "predict") as seen:
+            result, launches, s = part(lambda: tester.run_trials(
+                trials=3, serial_port=SyntheticBoard(speed=64.0), model_path=str(CHECKPOINT), verbose=False))
+        exactly("11a utilities.tester.run_trials", launches, {"kuramoto_pair_sums": 3})
+        chunks = np.stack([args[1] for args, _ in seen])
+        card = np.stack([out[0] for _, out in seen])
+        cpu = InferenceEngine(str(CHECKPOINT), class_names=("Food", "Water", "None"), device="cpu").predict_batch(chunks)
+        avg = result.avg_probs
+        dp = float(np.abs(card - cpu).max())
+        if not (result.trials == 3 and len(seen) == 3 and abs(float(avg.sum()) - 1.0) <= 1e-5 and dp <= PROB_TOL
+                and float(np.abs(avg - cpu.mean(0)).max()) <= PROB_TOL):
+            raise AssertionError(f"11a run_trials: {result}, card vs cpu |dprob| {dp}")
+        phase(f"11a utilities.tester.run_trials(3) on SyntheticBoard(speed=64) on {dev}: {s:.3f} s; avg_probs "
+              f"{np.round(avg, 4).tolist()} (sum 1); launches {launches}; the 3 decoded windows on the cpu engine: "
+              f"|dprob| {dp:.3e} (tol {PROB_TOL})")
+
+        # 11b. SimplePredictor on a .pth written by the port's exporter
+        pth = tmp / "lstm3.pth"
+        save_torch_checkpoint(pth, decoder_params_to_torch_state(load_params_npz(CHECKPOINT)))
+        w16 = synthetic_windows(16, seed=111) * 20.0
+        sp = lstm_eeg_model.SimplePredictor(str(pth), sr=125)
+        sp_cpu = lstm_eeg_model.SimplePredictor(str(pth), sr=125, device="cpu")
+        (probs, labels), launches, s = part(lambda: (
+            sp._engine.predict_batch(w16), [sp.predict(w)[1] for w in w16[:3]]))
+        # the shim's FilterConfig(lambd=...) is precision "highest": the
+        # float64 stages filter on the card, which launches no kernel
+        exactly("11b SimplePredictor (highest filter: float64 stages)", launches, {})
+        want = sp_cpu._engine.predict_batch(w16)
+        dp = float(np.abs(probs - want).max())
+        want_labels = [sp_cpu.predict(w)[1] for w in w16[:3]]
+        if not (sp._engine.device.type == "cuda" and dp <= PROB_TOL and np.array_equal(probs.argmax(1), want.argmax(1))
+                and labels == want_labels):
+            raise AssertionError(f"11b SimplePredictor card vs cpu: |dprob| {dp}, labels {labels} vs {want_labels}")
+        phase(f"11b SimplePredictor(.pth from the port's exporter, sr 125) on {sp._engine.device}: 16 windows in {s:.3f} s "
+              f"(and predict() on 3); launches {launches} (FilterConfig(lambd) is 'highest': float64 stages, no "
+              f"kernel); vs cpu |dprob| {dp:.3e} (tol {PROB_TOL}), argmax and labels {labels} equal")
+
+        # 11c. PreProcessor
+        pre, pre_cpu = preprocessor.PreProcessor(sr=125), preprocessor.PreProcessor(sr=125, device="cpu")
+        out, launches, s = part(lambda: [pre.transform(w) for w in w16[:4]])
+        exactly("11c PreProcessor", launches, {})
+        rel = max(float(np.abs(g - pre_cpu.transform(w)).max() / np.abs(g).max()) for g, w in zip(out, w16[:4]))
+        if not (out[0].dtype == np.float32 and out[0].shape == (T, C) and rel <= SURFACE_FILTER_TOL):
+            raise AssertionError(f"11c PreProcessor card vs cpu: {rel}")
+        phase(f"11c PreProcessor.transform (4 windows) on {pre.device}: {s:.3f} s; launches {launches}; vs cpu "
+              f"{rel:.3e} of each window's max |output| (tol {SURFACE_FILTER_TOL})")
+
+        # 11d. the three board classes on synthetic boards
+        t = time.perf_counter()
+        conn = neurokit_connector.NeuroPawnConnector(SyntheticBoard(speed=64.0))
+        conn.start_stream()
+        try:
+            drain(conn.board, T)
+            win = conn.get_window(5.0)
+        finally:
+            conn.stop_stream()
+        board = SyntheticBoard(speed=64.0)
+        sent, send = [], board.config_board_with_bytes
+        board.config_board_with_bytes = lambda payload: sent.append((payload.decode(), board._streaming)) or send(payload)
+        kb = knight_board_init.KnightBoard(board, 8)
+        try:
+            kb.get_window(5.0)
+            raise AssertionError("11d KnightBoard.get_window before start_stream did not raise")
+        except RuntimeError:
+            pass
+        kb.start_stream()
+        try:
+            drain(board, T)
+            kwin = kb.get_window(5.0)
+        finally:
+            kb.stop_stream()
+        q = queue.Queue(maxsize=8)
+        proc = streaming_process.StreamingProcess(SyntheticBoard(speed=64.0), out_queue=q)
+        proc.start()
+        proc.recording_flag.value = True
+        try:
+            payloads = [q.get(timeout=30) for _ in range(2)]
+        finally:
+            proc.recording_flag.value = False
+            proc.stop()
+            proc.join(timeout=5)
+        if not (conn.params is None and win.shape == (C, T) and kwin.shape == (C, T) and kb.board_shim is board
+                and sent == [(c, True) for c in LEGACY_COMMANDS]
+                and all(p["data"].shape == (T, C) and p["sr"] == 125 for p in payloads)):
+            raise AssertionError(f"11d boards: windows {win.shape} {kwin.shape}, commands {sent}")
+        phase(f"11d NeuroPawnConnector window {win.shape}; KnightBoard window {kwin.shape}, {len(sent)} config "
+              f"commands after start_stream in the legacy order; StreamingProcess {len(payloads)} payloads of "
+              f"{payloads[0]['data'].shape} at sr {payloads[0]['sr']}: {time.perf_counter() - t:.3f} s")
+
+        # 11e. eval_models on synthetic trials
+        trials = tmp / "trials"
+        trials.mkdir()
+        write_trials(trials, SURFACE_TRIALS, seed=112)
+        results, launches, s = part(lambda: eval_models.evaluate_all(trials, reference=str(pth)))
+        exactly("11e eval_models (the 3-class split filtered once)", launches, {"kuramoto_pair_sums": 1})
+        cpu_results = eval_models.evaluate_all(trials, reference=str(pth), device="cpu")
+        _, val = load_trials(trials).split(0.2, seed=0)
+        worst = max(abs(results[k] - cpu_results[k]) for k in cpu_results)
+        if not (list(results) == list(cpu_results) and eval_models.REFERENCE_KEY in results
+                and all(0.0 <= v <= 1.0 for v in results.values()) and worst <= 1.0 / len(val)):
+            raise AssertionError(f"11e eval_models: {results} vs cpu {cpu_results}")
+        phase(f"11e eval_models({SURFACE_TRIALS} trials, {len(val)} held out, --reference) on {dev}: {s:.3f} s; "
+              f"{len(results)} rows, accuracies {[round(v, 3) for v in results.values()]}; launches {launches}; "
+              f"vs cpu at most {worst:.3f} apart (tol one window, {1.0 / len(val):.3f})")
+
+        # 11f. the fidelity report against a golden dump of the CPU engine in float64
+        ds = load_trials(trials, class_prefixes=FIVE_CLASS_PREFIXES)
+        cpu_params = params_from_jax(load_params_npz(CHECKPOINT), "cpu")
+        logits = decoder_logits(cpu_params, mai_filter_batch(ds.windows, FilterConfig(precision="highest"),
+                                                             device="cpu")).numpy()
+        golden, golden_filtered = tmp / "golden_probs.npz", tmp / "golden_filtered.npz"
+        np.savez(golden, files=np.asarray(ds.files), logits=logits,
+                 probs=torch.softmax(torch.from_numpy(logits), -1).numpy())
+        with contextlib.redirect_stdout(sys.stderr):
+            fidelity_report.write_filtered(ds, golden_filtered)
+        with contextlib.redirect_stdout(sys.stderr):
+            report, launches, s = part(lambda: fidelity_report.fidelity_report(
+                pth, trials, golden, golden_filtered, stages=True))
+        exactly("11f fidelity_report (fast and turbo each filter once)", launches, {"kuramoto_pair_sums": 2})
+        modes = report["modes"]
+        if not (list(modes) == ["fidelity f64", "fast f32", "turbo bf16"]
+                and modes["fidelity f64"]["max_dlogit"] <= LOGIT_TOL
+                and modes["fidelity f64"]["argmax_agreement"] == 1.0
+                and all(np.isfinite(v) for m in modes.values() for v in m.values())):
+            raise AssertionError(f"11f fidelity_report: {report}")
+        phase(f"11f fidelity_report --stages ({report['trials']} trials, lstm3 .pth) on {report['device']}: "
+              f"{s:.3f} s; launches {launches}; against the cpu engine's float64 golden dump (highest mode tol "
+              f"{LOGIT_TOL} |dlogit|): " + "; ".join(
+                  f"{name}: |dlogit| {m['max_dlogit']:.3e}, |dprob| {m['max_dprob']:.3e}, argmax "
+                  f"{m['argmax_agreement']:.4f}, filter {m['filter_max_delta']:.3e}, model-only "
+                  f"{m['model_only_max_dlogit']:.3e}" for name, m in modes.items()))
+
+        # 11g. the quickstart on those trials
+        with contextlib.redirect_stdout(sys.stderr):
+            qs, launches, s = part(lambda: quickstart.run(trials))
+        if min(launches[k] for k in PATH_KERNELS) < 1 or launches["kuramoto_pair_sums"] < 13:
+            raise AssertionError(f"11g quickstart left a kernel of its path unlaunched: {launches}")
+        ds3 = load_trials(trials)
+        want = InferenceEngine(str(CHECKPOINT), device="cpu").predict_batch(ds3.windows[:16])
+        ewant = EnsembleEngine.from_manifest(str(FLAGSHIP), device="cpu").predict_batch(ds3.windows[:16])
+        dp = float(np.abs(qs["batch_probs"] - want).max())
+        dpe = float(np.abs(qs["ensemble_probs"] - ewant).max())
+        if not (dp <= PROB_TOL and dpe <= PROB_TOL and qs["run_trials"].trials == 5
+                and qs["stream_predictions"] == 5 and qs["recording_windows"] == 11):
+            raise AssertionError(f"11g quickstart: batch |dprob| {dp}, ensemble |dprob| {dpe}, {qs}")
+        phase(f"11g quickstart on {SURFACE_TRIALS} trials on {dev}: {s:.3f} s; launches {launches}; batched decode "
+              f"(16) vs cpu |dprob| {dp:.3e}, ensemble (16) vs cpu |dprob| {dpe:.3e} (tol {PROB_TOL}); run_trials "
+              f"5, stream 5 predictions, recording {qs['recording_windows']} windows")
+
+    # 11h. entry.py: entry()'s forward, and dryrun_multichip(2)
+    fn, (params, windows) = port_entry.entry()
+    probs, launches, s = part(lambda: fn(params, windows))
+    exactly("11h entry forward", launches, {"kuramoto_pair_sums": 1})
+    cfn, (cparams, cwindows) = port_entry.entry(device="cpu")
+    dp = float(np.abs(probs.cpu().numpy() - cfn(cparams, cwindows).numpy()).max())
+    if not (probs.device.type == "cuda" and probs.shape == (8, 3) and dp <= PROB_TOL):
+        raise AssertionError(f"11h entry forward card vs cpu: |dprob| {dp}")
+    devices = mesh_devices(2)
+    with contextlib.redirect_stdout(sys.stderr):
+        dry, dlaunches, dry_s = part(lambda: port_entry.dryrun_multichip(2, devices=devices))
+    if min(dlaunches[k] for k in PATH_KERNELS) < 2 or dry["ensemble_members"] != 5:
+        raise AssertionError(f"11h dryrun_multichip: {dry}, launches {dlaunches}")
+    phase(f"11h entry() forward (8 windows) on {dev}: {s:.3f} s; launches {launches}; vs cpu |dprob| {dp:.3e} "
+          f"(tol {PROB_TOL}); dryrun_multichip(2) on {devices}: {dry_s:.3f} s; lstm loss {dry['loss']:.4f}, logcov8 "
+          f"loss {dry['logcov8_loss']:.4f}, {dry['ensemble_members']} members served, sharded filter vs stages "
+          f"{dry['kernel_vs_stages_max_delta']:.3e}; launches {dlaunches}")
+    phase(f"11 phase 11 took {time.perf_counter() - t_phase:.1f} s ({smi})")
     return runs
 
 
@@ -2671,9 +2940,16 @@ def main() -> int:
     # 3d. the device-only times of phase 3's calls, measured here and not
     # in phase 3: with these torch.profiler sessions in phase 3, 9g's
     # trace was seen to hold no pair-sums kernel event in its range (H100,
-    # torch 2.11), so 9g keeps the process's first session
+    # torch 2.11), so 9g keeps the process's first session. And before
+    # phase 11: after it, the first of these sessions was seen to record
+    # no kernel at all (H100, torch 2.11), though no part of phase 11 alone
+    # did that to a session that followed it in a fresh process
     device_only = {label: device_ms(fn, 20) for label, fn in device_jobs.items()}
     del device_jobs
+
+    # 11. the reference surface, the evaluation and fidelity tools, the
+    # quickstart and entry.py
+    surface_launches = check_reference_surface(dev, smi)
 
     # 6. report
     k_ms, p_ms, bound, by = times[TIMED[-1]]
@@ -2684,7 +2960,7 @@ def main() -> int:
                                          flagship_trial_launches, cheb_launches, cheb_trial_launches,
                                          unw_launches, iir_launches, mix_launches, rec_launches,
                                          tcn_trial_launches, train_launches, cli_launches]
-                   + family_launches + live_launches + analysis_launches + mesh_launches)
+                   + family_launches + live_launches + analysis_launches + mesh_launches + surface_launches)
 
     logcov_times[TIMED[0]].update(logcov_feats_chebyshev=cheb_times[TIMED[0]], logm_clenshaw=logm_times[TIMED[0]],
                               iir_cascade=iir_times[TIMED[0]])

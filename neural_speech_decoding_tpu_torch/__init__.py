@@ -29,13 +29,22 @@ Butterworth design and the collector chain's operator in ops/iir.py).
   analysis/      signal-file intake (CSV, EDF), filter metrics, and the
                  offline and real-time filter-analysis CLIs
   tools/         cross-validation, session-level accuracy, deployment
-                 ensemble fitting, the streaming soak
+                 ensemble fitting, the streaming soak, the model-selection
+                 sweep, held-out accuracy of the shipped checkpoints, the
+                 per-precision fidelity report
+  parallel/      data parallelism on a one-process device mesh
+  utilities/     the reference app's import surface (the counterpart of
+                 the repository's Utilities/: tester, SimplePredictor,
+                 PreProcessor, the connector, board and producer classes)
   utils/         device selection, latency metrics, profiler tracing
+  quickstart.py  every surface in one run
+  entry.py       entry(), a forward step, and dryrun_multichip(n)
 
 Entry points (`InferenceEngine`, `EnsembleEngine`, `mai_filter_batch`,
 `fused_preprocess`, `run_trials`, `train`, the stream, collector and
 dashboard CLIs, `record_trial`, `run_experiment`, the analysis CLIs and
-`KuramotoSpatialFilter`, the tools, `device_trace`) run on CUDA unless the
+`KuramotoSpatialFilter`, the tools, `device_trace`, `utilities/`, the
+quickstart, `entry()` and `dryrun_multichip`) run on CUDA unless the
 caller passes `device="cpu"`; without CUDA they raise.
 """
 

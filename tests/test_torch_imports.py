@@ -1,6 +1,7 @@
 """The port stands alone: neither its package nor the scripts that drive it
-on the card (chip_smoke.py) import JAX, anything of the JAX package, or the
-repository's `tools` package (which drives the JAX package)."""
+on the card (chip_smoke.py) import JAX, anything of the JAX package, the
+reference app's shim over it (`Utilities`), or the repository's `tools`
+package (which drives the JAX package)."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "neural_speech_decoding_tpu_torch"
 FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "neural_speech_decoding_tpu", "tools")
+FORBIDDEN = ("jax", "jaxlib", "neural_speech_decoding_tpu", "tools", "Utilities")
 
 
 def _imported_modules(path: Path):
@@ -67,3 +68,36 @@ def test_slice_8_modules_import():
     from neural_speech_decoding_tpu_torch.ops.kuramoto import mai_filter_batch_sharded
 
     assert callable(mai_filter_batch_sharded)
+
+
+def test_slice_9_modules_import():
+    """The reference surface, the evaluation and fidelity tools, the
+    quickstart and entry.py import without JAX on the path."""
+    import importlib
+
+    for name in ("utilities", "utilities.tester", "utilities.lstm_eeg_model", "utilities.preprocessor",
+                 "utilities.neurokit_connector", "utilities.knight_board_init", "utilities.streaming_process",
+                 "tools.eval_models", "tools.fidelity_report", "quickstart", "entry"):
+        mod = importlib.import_module(f"neural_speech_decoding_tpu_torch.{name}")
+        assert (PORT / (name.replace(".", "/") + ("/__init__.py" if name == "utilities" else ".py"))).is_file()
+        assert mod.__name__.endswith(name)
+    from neural_speech_decoding_tpu_torch.entry import dryrun_multichip, entry
+
+    assert callable(entry) and callable(dryrun_multichip)
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (REPO / "Utilities").glob("*.py") if p.stem != "__init__"))
+def test_utilities_offers_every_shim_module(name):
+    """Each module of Utilities/ has its counterpart in the port's
+    utilities/, with every name the shim's module imports or defines."""
+    import importlib
+
+    port = importlib.import_module(f"neural_speech_decoding_tpu_torch.utilities.{name}")
+    tree = ast.parse((REPO / "Utilities" / f"{name}.py").read_text())
+    offered = set()
+    for node in tree.body:
+        if isinstance(node, (ast.ClassDef, ast.FunctionDef)):
+            offered.add(node.name)
+        elif isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            offered.update(alias.asname or alias.name for alias in node.names)
+    assert offered and offered <= set(dir(port))
